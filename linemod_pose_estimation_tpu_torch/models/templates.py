@@ -1,0 +1,294 @@
+"""Template banks: the padded per-level feature arrays fed to the matcher.
+
+The bank half of ``linemod_pose_estimation_tpu/models/templates.py``:
+parameters, per-template feature lists, the padded LevelFeatures stacks
+and the derived extents and GEMM weights.  Banks load through the native
+C++ loader only (``utils/native.py``); template extraction and the PyYAML
+reader are not ported yet.  Bank arrays live on the CPU; matchers copy
+what they need to their device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..ops.match import LevelFeatures
+
+
+def _maybe_ungz(path: str) -> str:
+    """Decompress a `.gz` bank to a cached temp file so the native C++
+    parser sees plain YAML (committed banks ship gzipped)."""
+    if not path.endswith(".gz"):
+        return path
+    import gzip
+    import hashlib
+    import os
+    import tempfile
+
+    st = os.stat(path)
+    tag = hashlib.sha1(
+        f"{os.path.abspath(path)}:{st.st_size}:{st.st_mtime_ns}".encode()
+    ).hexdigest()[:16]
+    dst = os.path.join(tempfile.gettempdir(), f"lpe_bank_{tag}.yml")
+    if not os.path.exists(dst):
+        # Per-process temp + atomic replace: concurrent loaders publish
+        # identical content, last writer wins.
+        tmp = f"{dst}.{os.getpid()}.part"
+        try:
+            with gzip.open(path, "rb") as f, open(tmp, "wb") as g:
+                while True:
+                    chunk = f.read(1 << 20)
+                    if not chunk:
+                        break
+                    g.write(chunk)
+            os.replace(tmp, dst)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return dst
+
+
+@dataclass
+class ModalityParams:
+    weak_threshold: float = 10.0
+    num_features: int = 63
+    strong_threshold: float = 55.0
+    # DepthNormal:
+    distance_threshold: float = 2000.0
+    difference_threshold: float = 50.0
+    extract_threshold: int = 2
+
+
+@dataclass
+class DetectorParams:
+    t_pyramid: tuple[int, ...] = (5, 8)  # T at level 0, level 1
+    use_color_gradient: bool = True
+    use_depth_normal: bool = False
+    color: ModalityParams = field(default_factory=ModalityParams)
+    depth: ModalityParams = field(default_factory=ModalityParams)
+
+    @property
+    def pyramid_levels(self) -> int:
+        return len(self.t_pyramid)
+
+
+@dataclass
+class TemplateFeatures:
+    """One template: per-level, per-modality feature lists (numpy)."""
+
+    # lists over pyramid levels; each entry (F, 3) int32 rows (y, x, ori)
+    grad: list[np.ndarray]
+    norm: list[np.ndarray]
+    size: list[tuple[int, int]]  # (h, w) per level of the cropped bbox
+    rect0: tuple[int, int, int, int]  # level-0 (x, y, w, h) bbox
+
+
+def stack_level_features(
+    templates: list[TemplateFeatures], level: int, modality: str, f_cap: int
+) -> LevelFeatures:
+    """Pad one (level, modality)'s features across the bank into arrays."""
+    N = len(templates)
+    offsets = np.zeros((N, f_cap, 2), np.int32)
+    oris = np.zeros((N, f_cap), np.int32)
+    count = np.zeros((N,), np.int32)
+    size = np.zeros((N, 2), np.int32)
+    for i, t in enumerate(templates):
+        fl = (t.grad if modality == "grad" else t.norm)[level]
+        n = min(fl.shape[0], f_cap)
+        offsets[i, :n] = fl[:n, :2]
+        oris[i, :n] = fl[:n, 2]
+        count[i] = n
+        size[i] = t.size[level]
+    live = np.arange(f_cap, dtype=np.int32)[None, :] < count[:, None]
+    return LevelFeatures(
+        offsets=torch.from_numpy(offsets),
+        oris=torch.from_numpy(oris),
+        live=torch.from_numpy(live),
+        count=torch.from_numpy(count),
+        size=torch.from_numpy(size),
+    )
+
+
+DEAD_SIZE = 10**6  # template size of a dead row: invalid at every position
+
+
+def _append_dead(lf: LevelFeatures, n: int) -> LevelFeatures:
+    z = lambda a: torch.cat([a, torch.zeros((n,) + a.shape[1:], dtype=a.dtype)])
+    size = torch.cat([lf.size, torch.full((n, 2), DEAD_SIZE, dtype=lf.size.dtype)])
+    return LevelFeatures(z(lf.offsets), z(lf.oris), z(lf.live), z(lf.count), size)
+
+
+class TemplateBank:
+    """A class's templates as padded arrays (CPU tensors)."""
+
+    def __init__(
+        self,
+        class_id: str,
+        params: DetectorParams,
+        templates: list[TemplateFeatures],
+        f_cap: int = 64,
+        n_dead: int = 0,
+    ):
+        """`n_dead` appends that many dead array rows after the templates:
+        no features, count 0 and a size no frame fits, so they are never
+        valid anywhere (padding of a tiled bank, see `tile`)."""
+        self.class_id = class_id
+        self.params = params
+        self.templates = templates
+        self.f_cap = f_cap
+        self.n_dead = n_dead
+        self._merged: dict[int, LevelFeatures] = {}
+        self._gemm_w: dict[int, torch.Tensor] = {}
+        self._build_arrays()
+
+    def _build_arrays(self) -> None:
+        p = self.params
+        self.levels: list[dict[str, LevelFeatures]] = []
+        for l in range(p.pyramid_levels):
+            d: dict[str, LevelFeatures] = {}
+            if p.use_color_gradient:
+                d["grad"] = stack_level_features(self.templates, l, "grad", self.f_cap)
+            if p.use_depth_normal:
+                d["norm"] = stack_level_features(self.templates, l, "norm", self.f_cap)
+            if self.n_dead:
+                d = {m: _append_dead(lf, self.n_dead) for m, lf in d.items()}
+            self.levels.append(d)
+        # Total features per template per level (similarity normalization).
+        self.total_features = [
+            sum(lf.count for lf in self.levels[l].values())
+            for l in range(p.pyramid_levels)
+        ]
+
+    @property
+    def num_templates(self) -> int:
+        """Array rows: the templates plus any dead padding rows."""
+        return len(self.templates) + self.n_dead
+
+    def tile(self, reps: int, pad_to: int) -> "TemplateBank":
+        """A bank of this one's templates repeated `reps` times, padded with
+        dead rows to `pad_to` rows (a realistic-scale bank built from a
+        smaller one).  Extents are those of the real templates."""
+        n = len(self.templates) * reps
+        if pad_to < n:
+            raise ValueError(f"pad_to={pad_to} < {n} tiled templates")
+        return TemplateBank(self.class_id, self.params, self.templates * reps,
+                            f_cap=self.f_cap, n_dead=pad_to - n)
+
+    @property
+    def num_modalities(self) -> int:
+        return len(self.levels[0])
+
+    def _max_size(self, level: int) -> int | None:
+        n = len(self.templates)  # dead rows carry no extent
+        sizes = torch.stack([lf.size[:n] for lf in self.levels[level].values()])
+        return int(sizes.max()) if sizes.numel() else None
+
+    def max_cell_extent(self, level: int) -> int:
+        """Max template extent in T-cells at `level`: max_offset // T + 1
+        (`size` stores the template's maximum feature offset)."""
+        m = self._max_size(level)
+        return 1 if m is None else m // self.params.t_pyramid[level] + 1
+
+    def extent(self, level: int) -> int:
+        """Max template pixel extent at `level`, rounded up to a multiple
+        of 8."""
+        m = self._max_size(level)
+        e = m + 1 if m is not None else 8
+        return max((e + 7) // 8 * 8, 8)
+
+    def merged_features(self, level: int) -> LevelFeatures:
+        """Modality-merged LevelFeatures for this level (cached)."""
+        from ..ops.match import merge_modalities
+
+        if level not in self._merged:
+            fl = list(self.levels[level].values())
+            dummy = [torch.zeros((8, 8, 8), dtype=torch.uint8)] * len(fl)
+            self._merged[level], _ = merge_modalities(fl, dummy)
+        return self._merged[level]
+
+    def gemm_weights(self, level: int) -> torch.Tensor:
+        """One-hot GEMM weight matrix (K, N) int8 (cached)."""
+        from ..ops.match import build_gemm_weights
+
+        if level not in self._gemm_w:
+            C = 8 * len(self.levels[level])
+            T = self.params.t_pyramid[level]
+            self._gemm_w[level] = build_gemm_weights(
+                self.merged_features(level), C, T, self.max_cell_extent(level)
+            )
+        return self._gemm_w[level]
+
+    @staticmethod
+    def read_templates_yaml(path: str, f_cap: int = 64) -> "TemplateBank":
+        """Load a cv::linemod templates.yml (or .yml.gz) through the native
+        loader, which this port requires."""
+        import gzip
+        import re
+
+        from ..utils import native
+
+        path = _maybe_ungz(path)
+        nat = native.load_templates_native(path) if native.available() else None
+        if nat is None:
+            raise RuntimeError(
+                f"native bank loader unavailable or failed on {path!r} "
+                "(it builds with `make -C native`; needs g++)"
+            )
+        entries, features, header, mparams = nat
+        # header[1] is a modality bitmask: bit0 ColorGradient, bit1 DepthNormal.
+        levels, mod_mask, T0, T1 = (int(v) for v in header)
+        cp = ModalityParams(
+            weak_threshold=float(mparams[0, 0]) or 10.0,
+            num_features=int(mparams[0, 1]) or 63,
+            strong_threshold=float(mparams[0, 2]) or 55.0,
+        )
+        dp = ModalityParams(
+            distance_threshold=float(mparams[1, 0]) or 2000.0,
+            difference_threshold=float(mparams[1, 1]) or 50.0,
+            num_features=int(mparams[1, 2]) or 63,
+            extract_threshold=int(mparams[1, 3]) or 2,
+        )
+        params = DetectorParams(
+            t_pyramid=(T0, T1),
+            use_color_gradient=bool(mod_mask & 1),
+            use_depth_normal=bool(mod_mask & 2),
+            color=cp,
+            depth=dp,
+        )
+        templates: list[TemplateFeatures] = []
+        fo = 0
+        cur_pid = -1
+        for e in entries:
+            pid, w, h, level, mod, nf = (int(v) for v in e)
+            if pid != cur_pid:
+                templates.append(
+                    TemplateFeatures(
+                        grad=[None] * levels, norm=[None] * levels,  # type: ignore
+                        size=[(0, 0)] * levels, rect0=(0, 0, 0, 0),
+                    )
+                )
+                cur_pid = pid
+            t = templates[-1]
+            # Blob rows are raw file order [x, y, label] -> (y, x, ori).
+            fl = features[fo:fo + nf][:, [1, 0, 2]].copy()
+            fo += nf
+            t.size[level] = (h, w)
+            if mod == 0:
+                t.grad[level] = fl
+            else:
+                t.norm[level] = fl
+        for t in templates:
+            t.grad = [g for g in t.grad if g is not None]
+            t.norm = [n for n in t.norm if n is not None]
+            if t.size[0] != (0, 0):
+                t.rect0 = (0, 0, t.size[0][1], t.size[0][0])
+        # class_id lives in a small header region; grab it cheaply.
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rt") as f:
+            head = f.read(65536)
+        m = re.search(r"class_id:\s*(\S+)", head)
+        class_id = m.group(1) if m else "obj"
+        return TemplateBank(class_id, params, templates, f_cap=f_cap)

@@ -1,0 +1,111 @@
+"""Synthetic RGB-D bin-picking scenes from the committed 640x480 renders
+(``tests/data/render_cache``), numpy only.
+
+The layout follows the reference bench's scenes: a low-texture gradient
+background at 1500 mm with three flat distractor blocks, and rendered
+object views planted, colour and depth, at random in-frame offsets.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+
+import numpy as np
+
+RENDER_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "tests",
+                          "data", "render_cache")
+BG_MM = 1500.0
+
+
+def load_views():
+    """The committed 640x480 renders, in file-name order: a list of
+    (rgb (H, W, 3) u8, depth_mm (H, W) f32, mask (H, W) bool,
+    rect (x, y, w, h))."""
+    views = []
+    for f in sorted(glob.glob(os.path.join(RENDER_DIR, "*.npz"))):
+        with np.load(f) as z:
+            if z["rgb"].shape[:2] != (480, 640):
+                continue
+            views.append((z["rgb"].copy(), z["depth_mm"].astype(np.float32),
+                          z["mask"] > 0, [int(v) for v in z["rect"]]))
+    return views
+
+
+def background(H: int, W: int, rng: np.random.Generator):
+    """Gradient background at BG_MM with three flat distractor blocks."""
+    yy, xx = np.mgrid[0:H, 0:W]
+    bg = (40 + 60 * yy / H + 30 * np.sin(xx / 200.0)).astype(np.uint8)
+    fr = np.stack([bg, (bg * 0.9).astype(np.uint8),
+                   (bg * 1.1).clip(0, 255).astype(np.uint8)], -1)
+    dp = np.full((H, W), BG_MM, np.float32)
+    for _ in range(3):
+        y0, x0 = int(rng.integers(0, H - 80)), int(rng.integers(0, W - 120))
+        fr[y0:y0 + 80, x0:x0 + 120] = rng.integers(60, 160, size=3)
+        dp[y0:y0 + 80, x0:x0 + 120] = float(rng.uniform(1200, 1800))
+    return fr, dp
+
+
+def plant(fr, dp, view, rng: np.random.Generator):
+    """Paste a view's object pixels (colour and depth) at a random offset
+    that keeps it in frame; returns the object's new (x, y) origin."""
+    rgb, vdep, mask, (x, y, w, h) = view
+    H, W = dp.shape
+    dy = int(rng.integers(-y, H - (y + h)))
+    dx = int(rng.integers(-x, W - (x + w)))
+    sub = mask[y:y + h, x:x + w]
+    tgt = np.s_[y + dy:y + dy + h, x + dx:x + dx + w]
+    fr[tgt][sub] = rgb[y:y + h, x:x + w][sub]
+    dp[tgt][sub] = vdep[y:y + h, x:x + w][sub]
+    return x + dx, y + dy
+
+
+def golden_batch(seed: int = 0):
+    """The 8-frame check batch: each committed 640x480 render planted once,
+    shifted, on its own background, plus one frame of background only.
+    Returns (rgbs (8, H, W, 3) u8, depths (8, H, W) f32, truths) with
+    truths[b] a list of (view index, x, y)."""
+    views = load_views()
+    rng = np.random.default_rng(seed)
+    H, W = views[0][0].shape[:2]
+    frames, depths, truths = [], [], []
+    for v in range(len(views) + 1):
+        fr, dp = background(H, W, rng)
+        planted = []
+        if v < len(views):
+            planted.append((v, *plant(fr, dp, views[v], rng)))
+        frames.append(fr)
+        depths.append(dp)
+        truths.append(planted)
+    return np.stack(frames), np.stack(depths), truths
+
+
+def bin_picking_batch(B: int, seed: int = 3):
+    """B frames, each with two random committed views planted."""
+    views = load_views()
+    rng = np.random.default_rng(seed)
+    H, W = views[0][0].shape[:2]
+    frames, depths, truths = [], [], []
+    for _ in range(B):
+        fr, dp = background(H, W, rng)
+        planted = []
+        for _ in range(2):
+            v = int(rng.integers(0, len(views)))
+            planted.append((v, *plant(fr, dp, views[v], rng)))
+        frames.append(fr)
+        depths.append(dp)
+        truths.append(planted)
+    return np.stack(frames), np.stack(depths), truths
+
+
+def found_rate(valid, xs, ys, truths, tol: int = 8) -> tuple[int, int]:
+    """(found, total): a planted object counts as found when some valid
+    match lies within `tol` px of its origin in x and y."""
+    ok = total = 0
+    for b, planted in enumerate(truths):
+        v = np.asarray(valid[b])
+        x, y = np.asarray(xs[b]), np.asarray(ys[b])
+        for _, px, py in planted:
+            total += 1
+            ok += bool((v & (np.abs(x - px) <= tol) & (np.abs(y - py) <= tol)).any())
+    return ok, total

@@ -1,0 +1,96 @@
+"""The CUDA kernels K1, K2, K3 and the kernel path of BatchedMatcher
+against their plain PyTorch versions, on a card.  Every test here is
+marked requires_cuda and skips without a CUDA device; the file imports no
+JAX, so it runs on a machine with a card and no JAX:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+Tolerance: bitwise equality (every output is an integer, bool, or the
+same f32 expression).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from linemod_pose_estimation_tpu_torch.models.detector import Detector
+from linemod_pose_estimation_tpu_torch.models.serving import BatchedMatcher
+from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
+from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
+from linemod_pose_estimation_tpu_torch.ops import features as TF
+from linemod_pose_estimation_tpu_torch.utils import scenes as S
+
+BANK = "data/boxNew_rgbd_templates.yml.gz"
+
+
+def _crops(frames=(4, 3)):
+    """240x320 crops of golden-batch frames centred on their objects."""
+    rgbs, deps, truths = S.golden_batch(0)
+    views = S.load_views()
+    out_r, out_d = [], []
+    for b in frames:
+        v, x, y = truths[b][0]
+        w, h = views[v][3][2:]
+        cy = int(np.clip(y + h // 2 - 120, 0, 240))
+        cx = int(np.clip(x + w // 2 - 160, 0, 320))
+        out_r.append(rgbs[b, cy:cy + 240, cx:cx + 320])
+        out_d.append(deps[b, cy:cy + 240, cx:cx + 320])
+    return np.stack(out_r), np.stack(out_d)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("level", [0, 1])
+def test_quantize_cg_kernel_equals_plain(cuda, level):
+    rng = np.random.default_rng(level)
+    rgb = torch.from_numpy(rng.integers(0, 256, size=(4, 480, 640, 3)).astype(np.uint8))
+    rgb[1, :, :300] = torch.tensor([200, 40, 40], dtype=torch.uint8)
+    rgb = rgb.to(cuda)
+    if level:
+        rgb = torch.stack([TF.pyr_down(rgb[..., c].float()) for c in range(3)], -1)
+    got = CP.quantize_color_gradient(rgb.contiguous(), 10.0)
+    assert torch.equal(got, CP.quantize_color_gradient_plain(rgb, 10.0))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("T", [5, 8])
+def test_spread_response_kernel_equals_plain(cuda, T):
+    g = torch.Generator(device=cuda).manual_seed(T)
+    q = (1 << torch.randint(0, 8, (4, 480, 640), device=cuda, generator=g)).to(torch.uint8)
+    q = q * (torch.rand((4, 480, 640), device=cuda, generator=g) < 0.3)
+    assert torch.equal(CK.spread_response(q, T), CK.spread_response_plain(q, T))
+
+
+@pytest.mark.requires_cuda
+def test_walk_kernel_equals_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, K, F, C = 4, 128, 128, 16
+    ri = lambda hi, shape: torch.randint(0, hi, shape, device=cuda, generator=g,
+                                         dtype=torch.int32)
+    R0 = ri(5, (B, C, 480, 640)).to(torch.uint8)
+    args = (R0, ri(C, (B, K, F)), ri(193, (B, K, F)), ri(193, (B, K, F)),
+            torch.rand((B, K, F), device=cuda, generator=g) < 0.9,
+            ri(90, (B, K)), ri(125, (B, K)),
+            torch.tensor([128, 50, 0, 7], dtype=torch.int32, device=cuda))
+    assert torch.equal(CK.walk_scores(*args, 5), CK.walk_scores_plain(*args, 5))
+
+
+@pytest.mark.requires_cuda
+def test_batched_matcher_kernels_equal_plain(cuda):
+    td = Detector.read(BANK)
+    cid = td.class_ids[0]
+    B = 2
+    kw = dict(top_k=64, prune=True, prune_mode="pooled", fine_g=4,
+              group_bound=16, pool_coarse=56 * B, pool_fine=36 * B,
+              pool_group=B * 15 * 20, device=cuda)
+    rgbs, deps = _crops()
+    got = BatchedMatcher(td, cid, 70.0, B, **kw).match_batch(rgbs, deps)
+    want = BatchedMatcher(td, cid, 70.0, B, plain=True, **kw).match_batch(rgbs, deps)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -1,0 +1,119 @@
+"""Where the port's main-path batch spends its time, on one NVIDIA GPU.
+
+    python tools/profile_torch_slice.py [--batch 32] [--iters 3] [--top 25]
+
+Runs the chip_smoke.py tiled-bank batch (bin-picking scenes over the RGB-D
+bank tiled to 10,624 templates, slice_settings) through the kernel path:
+first host-clock stage times bracketed by torch.cuda.synchronize()
+(preprocess / pooled matching / walk), then a torch.profiler trace of
+`--iters` whole batches: self device time by aten op and by kernel, and
+the device busy share (traced kernel time over the untraced batch time).
+Prints JSON lines; needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_slice: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from linemod_pose_estimation_tpu_torch.models.detector import Detector
+    from linemod_pose_estimation_tpu_torch.models.serving import (
+        BatchedMatcher, slice_settings)
+    from linemod_pose_estimation_tpu_torch.ops import match as M
+    from linemod_pose_estimation_tpu_torch.utils import scenes as S
+
+    dev = torch.device("cuda")
+    B = args.batch
+    det = Detector.read(os.path.join(REPO, "data", "boxNew_rgbd_templates.yml.gz"))
+    cid = det.class_ids[0]
+    bank = det.bank(cid)
+    det.attach_bank(bank.tile(-(-10240 // bank.num_templates), 10624))
+    m = BatchedMatcher(det, cid, 91.0, B, device=dev, **slice_settings(B))
+    rgbs_np, deps_np, _ = S.bin_picking_batch(B, seed=3)
+    rgbs = torch.from_numpy(rgbs_np).to(dev)
+    deps = torch.from_numpy(deps_np).to(dev)
+    m.match_batch(rgbs, deps)  # warm-up
+
+    def stages():
+        out = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        R0, R1 = M.preprocess_frames_batched(rgbs, deps, m.T0, m.T1, True, m.weak)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        R0c, cands, n_valid = m.candidates(rgbs, deps)  # includes a preprocess
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        m.refine(R0c, cands, n_valid)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out["preprocess_ms"] = (t1 - t0) * 1e3
+        out["pooled_match_ms"] = (t2 - t1 - (t1 - t0)) * 1e3
+        out["walk_ms"] = (t3 - t2) * 1e3
+        return out
+
+    for _ in range(args.iters):
+        print(json.dumps({"stages": stages()}), flush=True)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        m.match_batch(rgbs, deps)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.iters):
+            m.match_batch(rgbs, deps)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                return getattr(e, name)
+        return 0.0
+
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    kernels = sorted(((dev_us(e), e.key, e.count) for e in events
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    ops = sorted(((dev_us(e), e.key, e.count) for e in events
+                  if e.device_type == DeviceType.CPU and dev_us(e) > 0), reverse=True)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    # The profiler slows the host side many times over, so the busy share
+    # divides traced device time by the untraced batch time.
+    print(json.dumps({"trace": {
+        "batches": args.iters, "batch_ms_untraced": batch_ms,
+        "device_ms_per_batch": busy_ms / args.iters,
+        "device_busy_share": busy_ms / args.iters / batch_ms,
+        "card": torch.cuda.get_device_name(0)}}), flush=True)
+    for kind, rows in (("op", ops), ("kernel", kernels)):
+        for us, key, count in rows[:args.top]:
+            print(json.dumps({kind: key[:120], "device_ms_per_batch": us / 1e3 / args.iters,
+                              "calls_per_batch": count / args.iters}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
