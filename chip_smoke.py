@@ -20,7 +20,24 @@ from csrc/.  Phases, one JSON line each:
       that run, PooledStats, found rate, batch time;
   2c. the same batch with pool_coarse forced tiny: the exhaustive fallback
       runs and the Matches equal 2b's;
-  3. K3 against its plain version on 2b's candidate sets, bitwise.
+  3. K3 against its plain version on 2b's candidate sets, bitwise;
+  4. K4 (triangle z-buffer) against its plain version, bitwise on depth,
+     mask and shade: the cascade's shapes (the cuboid stand-in for the
+     boxNew mesh, 1984 padded triangles, 8 bank poses in the 256x256
+     render viewport), one full 640x480 frame at the bank's intrinsics,
+     and one off-screen pose (every z inf);
+  5. K2b: the single-frame preprocess_frame at 480x640, both modalities,
+     its B=1 K1 and K2 launches against the plain path, bitwise;
+  6. the cascade golden: DetectionPipeline.detect at full width (640x480,
+     the 2652-template RGB-D bank and its params, the cuboid, default
+     CascadeParams, threshold 91) on the frames of
+     tests/data/torch_cascade_golden.npz: Matches equal to the JAX
+     reference's, the ClusterSet's integer fields equal, per lane the
+     valid flag and rect equal and the pose within POSE_TOL (0.01 degrees
+     / 0.01 mm), a detection on each object frame and none on the
+     background frame; launch counts of K1-K4, detect ms per frame;
+     then a control: the same frames with TF32 matmuls switched on must
+     fall outside POSE_TOL (so the limit sees reduced precision).
 
 Then a kernels summary line, the card line, and last
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
@@ -42,7 +59,14 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BANK = os.path.join(REPO, "data", "boxNew_rgbd_templates.yml.gz")
+PARAMS = os.path.join(REPO, "data", "boxNew_rgbd_params.yml.gz")
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden.npz")
+CASCADE_GOLDEN = os.path.join(REPO, "tests", "data", "torch_cascade_golden.npz")
+# Degrees, mm between the card's poses and the reference's.  The card in
+# full f32 lands within 4e-5 deg / 1e-4 mm ("NVIDIA H100 80GB HBM3,
+# 700.00 W"); the TF32 control below must land outside.  The CPU tests'
+# looser 0.25 / 0.5 covers XLA's FMA contraction on the host, not the card.
+POSE_TOL = (0.01, 0.01)
 THRESHOLD = 91.0
 B_MAIN = 32
 TILE_TO = 10624  # the bank tiled up to >= 10,240 templates, padded to 128
@@ -53,6 +77,10 @@ KERNELS = {
                         "linemod_pose_estimation_tpu/ops/pallas_kernels.py:136"),
     "walk_scores": ("K3", "linemod_pose_estimation_tpu_torch/csrc/walk_scores.cu",
                     "linemod_pose_estimation_tpu/ops/pallas_kernels.py:403"),
+    "spread_response_b1": ("K2b", "linemod_pose_estimation_tpu_torch/csrc/spread_response.cu",
+                           "linemod_pose_estimation_tpu/ops/pallas_kernels.py:103"),
+    "raster_zbuffer": ("K4", "linemod_pose_estimation_tpu_torch/csrc/raster_zbuffer.cu",
+                       "linemod_pose_estimation_tpu/ops/pallas_raster.py:132"),
 }
 
 
@@ -92,6 +120,180 @@ def valid_equal(a, b) -> bool:
     """Same valid mask, and every field equal on the valid slots."""
     v = a.valid
     return torch.equal(v, b.valid) and all(torch.equal(x[v], y[v]) for x, y in zip(a, b))
+
+
+def pose_err(a, b) -> tuple[float, float]:
+    """(degrees, mm) between two (4, 4) poses."""
+    from linemod_pose_estimation_tpu_torch.utils.geometry import rotation_geodesic_deg
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    deg = float(rotation_geodesic_deg(torch.tensor(a[:3, :3]), torch.tensor(b[:3, :3])))
+    return deg, 1000.0 * float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+
+
+def cascade_phases(dev: torch.device, perf: dict) -> dict:
+    """Phases 4-6 (K4, K2b, the cascade golden); fills `perf` and returns
+    the launch counts of the checked detect run."""
+    from linemod_pose_estimation_tpu_torch.models import cascade as TC
+    from linemod_pose_estimation_tpu_torch.models.pipeline import DetectionPipeline
+    from linemod_pose_estimation_tpu_torch.models.renderer import _pad_triangles
+    from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
+    from linemod_pose_estimation_tpu_torch.ops import _build
+    from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
+    from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
+    from linemod_pose_estimation_tpu_torch.ops import features as F
+    from linemod_pose_estimation_tpu_torch.ops import match as M
+    from linemod_pose_estimation_tpu_torch.ops import raster as RA
+    from linemod_pose_estimation_tpu_torch.utils import pointcloud as TP
+    from linemod_pose_estimation_tpu_torch.utils import scenes as S
+
+    # -- phase 4: K4 vs plain at the cascade's shapes -------------------------
+    meta, glob = TemplateBank.read_params_yaml(PARAMS)
+    mesh = S.cuboid_mesh()
+    tris = torch.from_numpy(_pad_triangles(mesh.triangles, 64)).to(dev)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    Kf = f32([[glob.focal_length_x, 0, glob.width / 2.0],
+              [0, glob.focal_length_y, glob.height / 2.0], [0, 0, 1]])
+    vp = TC.CascadeParams().render_viewport
+    Kv = Kf.clone()
+    Kv[0, 2] = Kv[1, 2] = vp / 2.0
+    ids = [0, 300, 700, 1000, 1400, 1700, 2000, 2400]
+    cases = (
+        ("cascade_8x256x256", ids, Kv, vp, vp),
+        ("frame_640x480", [0], Kf, glob.width, glob.height),
+        ("offscreen", None, Kv, vp, vp),
+    )
+    for name, sel, K, w, h in cases:
+        if sel is None:
+            R, T = torch.eye(3, device=dev)[None], f32([[10.0, 0.0, 0.5]])
+        else:
+            R, T = f32(meta.R[sel]), f32(meta.T[sel])
+        coefs = RA.triangle_coefficients(tris, R, T, K.expand(R.shape[0], 3, 3))
+        (zk, sk), (zp, sp) = RA.raster_zbuffer(coefs, w, h), RA.raster_zbuffer_plain(coefs, w, h)
+        hit = torch.isfinite(zp)
+        require(torch.equal(torch.isfinite(zk), hit), f"K4 {name}: mask differs from plain")
+        require(torch.equal(zk, zp) and torch.equal(sk, sp),
+                f"K4 {name}: depth or shade differs from plain")
+        if sel is None:
+            require(not bool(hit.any()), "K4 offscreen: a pixel was covered")
+        err = float(torch.where(hit, (zk - zp).abs() + (sk - sp).abs(), 0.0).max())
+        perf["raster_zbuffer"][name] = dict(max_abs_err=err, covered=int(hit.sum()),
+                                            triangles=int(tris.shape[0]))
+        if name != "offscreen":
+            perf["raster_zbuffer"][name].update(
+                ms=cuda_ms(lambda: RA.raster_zbuffer(coefs, w, h), 20),
+                plain_ms=cuda_ms(lambda: RA.raster_zbuffer_plain(coefs, w, h), 3))
+    emit("raster_vs_plain", K4=perf["raster_zbuffer"])
+
+    # -- phase 5: K2b, the single-frame preprocess, kernels vs plain ---------
+    with np.load(CASCADE_GOLDEN) as z:
+        cg = {k: z[k] for k in z.files}
+    rgb0, dep0 = torch.from_numpy(cg["rgb"][0]).to(dev), f32(cg["depth_mm"][0])
+    for use_depth in (False, True):
+        got = M.preprocess_frame(rgb0, dep0, use_depth=use_depth)
+        ref = M.preprocess_frame(rgb0, dep0, use_depth=use_depth, plain=True)
+        for fname, a, b in zip(got._fields, got, ref):
+            require(torch.equal(a, b), f"K2b preprocess_frame {fname} "
+                    f"(use_depth={use_depth}) differs from plain")
+    q0 = CP.quantize_color_gradient(rgb0[None], 10.0)
+    q1 = F.quantize_depth_normal(dep0[None])[:, ::2, ::2].contiguous()
+    for name, q, T in (("grad_T5_480x640", q0, 5), ("norm_T8_240x320", q1, 8)):
+        err = max_abs_err(CK.spread_response(q, T), CK.spread_response_plain(q, T))
+        require(err == 0, f"K2b {name} differs from its plain version")
+        perf["spread_response_b1"][name] = dict(
+            ms=cuda_ms(lambda: CK.spread_response(q, T), 20),
+            plain_ms=cuda_ms(lambda: CK.spread_response_plain(q, T), 3),
+            max_abs_err=err)
+    emit("single_frame_preprocess_vs_plain", equal=True, K2b=perf["spread_response_b1"])
+
+    # -- phase 6: the cascade golden at full width ---------------------------
+    t0 = time.perf_counter()
+    pipe = DetectionPipeline.from_files(BANK, PARAMS, mesh, device=dev)
+    thr = float(cg["threshold"])
+    clouds = [TP.depth_to_cloud(TP.true_div(f32(d), 1000.0), pipe.K_render)
+              for d in cg["depth_mm"]]
+    frames = [(cg["rgb"][f], clouds[f], cg["depth_mm"][f]) for f in range(len(clouds))]
+    pipe.detect(*frames[0][:2], threshold=thr, depth_mm=frames[0][2])  # warm-up
+    torch.cuda.synchronize()
+    setup6_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    results = [pipe.detect(r, c, threshold=thr, depth_mm=d, return_stages=True)
+               for r, c, d in frames]
+    torch.cuda.synchronize()
+    launches6 = dict(_build.launch_counts)
+    for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
+        require(launches6[k] > 0, f"kernel {k} was not launched by detect")
+    per_frame = []
+    for f, (dets, st) in enumerate(results):
+        for name, a in st.matches._asdict().items():
+            require(np.array_equal(a.cpu().numpy(), cg["m_" + name][f]),
+                    f"frame {f}: Matches.{name} differs from the reference")
+        for name in ("count", "bbox", "valid", "member_idx", "member_valid"):
+            require(np.array_equal(getattr(st.clusters, name).cpu().numpy(),
+                                   cg["c_" + name][f]),
+                    f"frame {f}: ClusterSet.{name} differs from the reference")
+        for name in ("valid", "rect"):
+            require(np.array_equal(getattr(st.poses, name).cpu().numpy(), cg["p_" + name][f]),
+                    f"frame {f}: ClusterPose.{name} differs from the reference")
+        lanes = []
+        for lane in np.nonzero(cg["p_valid"][f])[0]:
+            d = pose_err(st.poses.pose[lane].cpu().numpy(), cg["p_pose"][f][lane])
+            require(d[0] <= POSE_TOL[0] and d[1] <= POSE_TOL[1],
+                    f"frame {f} lane {lane}: pose off the reference by {d}")
+            lanes.append(d)
+        tid = int(cg["templates"][f])
+        require((len(dets) >= 1) == (tid >= 0),
+                f"frame {f}: {len(dets)} detections (template {tid})")
+        row = dict(frame=f, template=tid, detections=len(dets),
+                   valid_matches=int(st.matches.valid.sum()),
+                   pose_vs_reference=[dict(deg=a, mm=b) for a, b in lanes])
+        if tid >= 0:
+            # planted pose, canonicalized as the cascade canonicalizes its output
+            gt = np.eye(4)
+            gt[:3, :3] = TC.canonicalize(torch.tensor(meta.R[tid]), "x_front").numpy()
+            gt[:3, 3] = meta.R[tid] @ meta.T[tid]
+            top = int(np.argmax(np.where(cg["p_valid"][f], cg["p_score"][f], -np.inf)))
+            row["top_vs_planted"] = dict(zip(("deg", "mm"), pose_err(dets[0].pose, gt)))
+            row["reference_top_vs_planted"] = dict(
+                zip(("deg", "mm"), pose_err(cg["p_pose"][f][top], gt)))
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                pipe.detect(*frames[f][:2], threshold=thr, depth_mm=frames[f][2])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            row["detect_ms_median_of_5"] = float(np.median(times))
+            row["detect_ms"] = times
+        per_frame.append(row)
+    _build.reset_launch_counts()
+    pipe.detect(*frames[0][:2], threshold=thr, depth_mm=frames[0][2])
+    per_detect = dict(_build.launch_counts)
+    emit("cascade_golden", equal_matches=True, frames=per_frame, launches=launches6,
+         launches_per_detect=per_detect, setup_s=setup6_s,
+         pose_tolerance_deg_mm=POSE_TOL)
+
+    # -- control: TF32 matmuls must break POSE_TOL ----------------------------
+    worst = [0.0, 0.0]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        for f, (r, c, d) in enumerate(frames):
+            st = pipe.detect(r, c, threshold=thr, depth_mm=d, return_stages=True)[1]
+            if not np.array_equal(st.poses.valid.cpu().numpy(), cg["p_valid"][f]):
+                worst = [float("inf")] * 2
+                continue
+            for lane in np.nonzero(cg["p_valid"][f])[0]:
+                e = pose_err(st.poses.pose[lane].cpu().numpy(), cg["p_pose"][f][lane])
+                worst = [max(worst[0], e[0]), max(worst[1], e[1])]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    require(worst[0] > POSE_TOL[0] or worst[1] > POSE_TOL[1],
+            f"TF32 control: poses within {POSE_TOL} of the reference ({worst}); "
+            "the limit does not see reduced precision")
+    emit("tf32_control", worst_deg=worst[0], worst_mm=worst[1],
+         pose_tolerance_deg_mm=POSE_TOL, outside=True)
+    return launches6
 
 
 def main() -> int:
@@ -203,8 +405,8 @@ def main() -> int:
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
-    for k, n in launches.items():
-        require(n > 0, f"kernel {k} was not launched on the main path")
+    for k in ("quantize_cg", "spread_response", "walk_scores"):  # this path's kernels
+        require(launches[k] > 0, f"kernel {k} was not launched on the main path")
     stats = main_m.last_pool
     require(not bool(stats.fallback), "the main-path batch fell back; it must "
             "exercise the pooled branch")
@@ -263,14 +465,18 @@ def main() -> int:
             max_abs_err=err, slots_walked=int(plan.n_valid.sum()))
     emit("walk_vs_plain", K3=perf["walk_scores"])
 
+    launches6 = cascade_phases(dev, perf)
+
     # -- summary -------------------------------------------------------------
     summary = []
     for key, (name, src, replaces) in KERNELS.items():
         shapes = perf[key]
-        main_shapes = [s for s, v in shapes.items() if "ms" in v and s != "all_slots"]
+        main_shapes = [s for s, v in shapes.items()
+                       if "ms" in v and s not in ("all_slots", "frame_640x480")]
         summary.append(dict(
             name=f"{name} {key}", route="cuda", source=src, replaces=replaces,
-            launches=launches[key],
+            launches=(launches6["spread_response"] if key == "spread_response_b1"
+                      else launches6[key] if key == "raster_zbuffer" else launches[key]),
             max_abs_err=max(v["max_abs_err"] for v in shapes.values()),
             ms=sum(shapes[s]["ms"] for s in main_shapes),
             plain_ms=sum(shapes[s]["plain_ms"] for s in main_shapes),

@@ -3,11 +3,14 @@
 The JAX package ``linemod_pose_estimation_tpu`` is the reference this
 package is held against; the layout mirrors it module for module:
 
-- ``utils``  — host helpers (the native bank loader).
-- ``ops``    — quantized modalities, spreading / response maps, the batched
-               template-scoring engine and the hand-written CUDA kernels
-               (``csrc/``) with their plain PyTorch versions.
-- ``models`` — template banks, the Detector and the batched serving matcher.
+- ``utils``  — the native bank loader, STL loading, SE(3) geometry and
+               point-cloud primitives, scene helpers.
+- ``ops``    — quantized modalities, spreading / response maps, the
+               template-scoring engines, the rasterizer, ICP, and the
+               hand-written CUDA kernels (``csrc/``) with their plain
+               PyTorch versions.
+- ``models`` — template banks, the Detector, the batched serving matcher,
+               the renderer, the detection cascade and DetectionPipeline.
 
 Nothing here imports ``jax``: the reference package imports it at package
 import time, so even its numpy-only helpers are copied, not imported.

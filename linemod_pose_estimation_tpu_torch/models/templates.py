@@ -2,8 +2,10 @@
 
 The bank half of ``linemod_pose_estimation_tpu/models/templates.py``:
 parameters, per-template feature lists, the padded LevelFeatures stacks
-and the derived extents and GEMM weights.  Banks load through the native
-C++ loader only (``utils/native.py``); template extraction and the PyYAML
+and the derived extents, plus the per-template pose
+metadata of a renderer_params.yml (``TemplateMetadata``,
+``RendererGlobals``).  Banks and params load through the native C++
+loader only (``utils/native.py``); template extraction and the PyYAML
 reader are not ported yet.  Bank arrays live on the CPU; matchers copy
 what they need to their device.
 """
@@ -76,6 +78,33 @@ class DetectorParams:
 
 
 @dataclass
+class TemplateMetadata:
+    """Per-template pose metadata — the renderer_params.yml schema."""
+
+    R: np.ndarray  # (N, 3, 3) float64 object -> camera
+    T: np.ndarray  # (N, 3) float64 (X_cam = R (X + T))
+    K: np.ndarray  # (N, 3, 3) float32
+    D: np.ndarray  # (N,) float64 (Ori_dist - centre surface depth)
+    Ori_dist: np.ndarray  # (N,) float64
+    Rect: np.ndarray  # (N, 4) int32 renderer mask bbox at level 0
+
+
+@dataclass
+class RendererGlobals:
+    n_points: int = 150
+    angle_step: int = 10
+    radius_min: float = 0.5
+    radius_max: float = 1.0
+    radius_step: float = 0.1
+    width: int = 640
+    height: int = 480
+    focal_length_x: float = 535.566011
+    focal_length_y: float = 537.168115
+    near: float = 0.1
+    far: float = 1000.0
+
+
+@dataclass
 class TemplateFeatures:
     """One template: per-level, per-modality feature lists (numpy)."""
 
@@ -141,7 +170,6 @@ class TemplateBank:
         self.f_cap = f_cap
         self.n_dead = n_dead
         self._merged: dict[int, LevelFeatures] = {}
-        self._gemm_w: dict[int, torch.Tensor] = {}
         self._build_arrays()
 
     def _build_arrays(self) -> None:
@@ -209,17 +237,29 @@ class TemplateBank:
             self._merged[level], _ = merge_modalities(fl, dummy)
         return self._merged[level]
 
-    def gemm_weights(self, level: int) -> torch.Tensor:
-        """One-hot GEMM weight matrix (K, N) int8 (cached)."""
-        from ..ops.match import build_gemm_weights
+    @staticmethod
+    def read_params_yaml(path: str) -> tuple[TemplateMetadata, RendererGlobals]:
+        """Parse a renderer_params.yml (or .yml.gz) through the native
+        loader, which this port requires."""
+        from ..utils import native
 
-        if level not in self._gemm_w:
-            C = 8 * len(self.levels[level])
-            T = self.params.t_pyramid[level]
-            self._gemm_w[level] = build_gemm_weights(
-                self.merged_features(level), C, T, self.max_cell_extent(level)
+        path = _maybe_ungz(path)
+        nat = native.load_params_native(path) if native.available() else None
+        if nat is None:
+            raise RuntimeError(
+                f"native params loader unavailable or failed on {path!r} "
+                "(it builds with `make -C native`; needs g++)"
             )
-        return self._gemm_w[level]
+        R, T, K, D, Od, Rect, g = nat
+        return (
+            TemplateMetadata(R=R, T=T, K=K, D=D, Ori_dist=Od, Rect=Rect),
+            RendererGlobals(
+                n_points=int(g[0]), angle_step=int(g[1]), radius_min=g[2],
+                radius_max=g[3], radius_step=g[4], width=int(g[5]),
+                height=int(g[6]), focal_length_x=g[7], focal_length_y=g[8],
+                near=g[9], far=g[10],
+            ),
+        )
 
     @staticmethod
     def read_templates_yaml(path: str, f_cap: int = 64) -> "TemplateBank":

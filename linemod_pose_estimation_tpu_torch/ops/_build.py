@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-On first use the sources are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, under ``build/torch_kernels/``
-at the repository root (git-ignored), and loaded with ``ctypes``.  The
+On first use each source is compiled by its own ``nvcc`` for ``sm_90a``
+(all started together), and the objects are linked into one shared
+library with a plain C interface, under ``build/torch_kernels/`` at the
+repository root (git-ignored), loaded with ``ctypes``.  The
 library is keyed by a hash of the sources and flags, so an edit rebuilds.
 Every entry point takes raw device pointers, the device index and the
 CUDA stream (the library links its own CUDA runtime, so it selects the
@@ -27,17 +28,20 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("quantize_cg.cu", "spread_response.cu", "walk_scores.cu")
+SOURCES = ("quantize_cg.cu", "spread_response.cu", "walk_scores.cu",
+           "raster_zbuffer.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # No FMA contraction: fastAtan2's polynomial must round after every
-    # product and sum, exactly like the reference's f32 expression.
+    # No FMA contraction: fastAtan2's polynomial (K1) and the rasterizer's
+    # edge functions (K4) must round after every product and sum, exactly
+    # like their plain versions.  No fast-math: divisions stay IEEE.
     "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # One plain integer per kernel: each wrapper adds one where it launches.
-launch_counts = {"quantize_cg": 0, "spread_response": 0, "walk_scores": 0}
+launch_counts = {"quantize_cg": 0, "spread_response": 0, "walk_scores": 0,
+                 "raster_zbuffer": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +53,8 @@ _SIGNATURES = {
     # (R0, oris, dys, dxs, live, gy0, gx0, n_valid, out,
     #  B, C, H, W, K, F, T, device, stream)
     "lpe_walk_scores": (_P,) * 9 + (_I,) * 8 + (_P,),
+    # (coefs, zbuf, sbuf, P, Tn, H, W, device, stream)
+    "lpe_raster_zbuffer": (_P,) * 3 + (_I,) * 5 + (_P,),
 }
 
 _lib = None
@@ -84,16 +90,35 @@ def library() -> ctypes.CDLL:
     so = os.path.join(BUILD_DIR, f"liblpe_torch_kernels_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-            capture_output=True, text=True, timeout=600,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
+        nvcc = _nvcc()
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
+        tmp = f"{so}.{os.getpid()}.tmp"
+        procs = []
+        try:
+            for s, o in zip(srcs, objs):
+                procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                              stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+            for s, p, log in zip(srcs, procs, logs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{log}")
+            proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, so)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in (*objs, tmp):
+                if os.path.exists(f):
+                    os.remove(f)
         last_build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(so)
     for name, args in _SIGNATURES.items():

@@ -13,6 +13,11 @@ The production path is the pooled exact matcher:
   refine_candidates_opencv_batched — cv::linemod's exact 16 x 16 local
       walk, K3 on the card.
 
+The single-frame engine (``models/detector.py::Detector.match_raw``) is
+preprocess_frame (the B=1 call of the batched preprocess), the
+exhaustive GEMM (coarse_scores_gemm), the reference's template-major
+select_candidates and refine_candidates_opencv (the B=1 walk).
+
 Every output equals the reference's bit for bit.  What changed on the way:
 
 - The int8 GEMMs run on ``torch._int_mm`` (cuBLASLt on the card).  It
@@ -893,7 +898,7 @@ def stack_modalities(pyr: FramePyramid, use_depth: bool):
     return pyr.grad_r0, pyr.grad_r1
 
 
-def preprocess_frames_batched(
+def preprocess_pyramid_batched(
     rgbs: torch.Tensor,  # (B, H, W, 3) uint8
     depths_mm: torch.Tensor | None,  # (B, H, W) f32 or None
     T0: int = 5,
@@ -901,9 +906,10 @@ def preprocess_frames_batched(
     use_depth: bool = False,
     weak_threshold: float = 10.0,
     plain: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched preprocess -> channel-stacked (R0, R1) response tensors
-    ((B, C, H, W), (B, C, H/2, W/2); C = 16 with DepthNormal, else 8).
+) -> FramePyramid:
+    """Batched preprocess -> per-modality response maps at both levels
+    ((B, 8, H, W) and (B, 8, H/2, W/2) u8; the norm fields are None when
+    `use_depth` is off).
 
     K1 quantizes ColorGradient at both levels (the level-1 input is the
     integer-valued f32 pyrDown output) and K2 spreads + responds four
@@ -934,4 +940,103 @@ def preprocess_frames_batched(
         n0 = F.quantize_depth_normal(depths_mm)
         n_r0 = respond(n0, T0)
         n_r1 = respond(n0[:, ::2, ::2].contiguous(), T1)
-    return stack_modalities(FramePyramid(g_r0, g_r1, n_r0, n_r1), use_depth)
+    return FramePyramid(g_r0, g_r1, n_r0, n_r1)
+
+
+def preprocess_frames_batched(
+    rgbs: torch.Tensor,  # (B, H, W, 3) uint8
+    depths_mm: torch.Tensor | None,  # (B, H, W) f32 or None
+    T0: int = 5,
+    T1: int = 8,
+    use_depth: bool = False,
+    weak_threshold: float = 10.0,
+    plain: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched preprocess -> channel-stacked (R0, R1) response tensors
+    ((B, C, H, W), (B, C, H/2, W/2); C = 16 with DepthNormal, else 8):
+    preprocess_pyramid_batched, stacked."""
+    pyr = preprocess_pyramid_batched(rgbs, depths_mm, T0, T1, use_depth,
+                                     weak_threshold, plain)
+    return stack_modalities(pyr, use_depth)
+
+
+def preprocess_frame(
+    rgb: torch.Tensor,  # (H, W, 3) uint8
+    depth_mm: torch.Tensor | None,  # (H, W) f32 or None
+    T0: int = 5,
+    T1: int = 8,
+    use_depth: bool = False,
+    weak_threshold: float = 10.0,
+    plain: bool = False,
+) -> FramePyramid:
+    """One frame -> response-map pyramid ((8, H, W) / (8, H/2, W/2) u8 per
+    modality): the B=1 call of preprocess_pyramid_batched, so K1 and K2
+    launch on the card (the B=1 K2 launches are the port of the
+    reference's single-frame K2, ``pallas_kernels.py::spread_response``).
+    The norm maps are zeros when depth is not used, as in the reference."""
+    use_depth = use_depth and depth_mm is not None
+    pyr = preprocess_pyramid_batched(
+        rgb[None], None if depth_mm is None else depth_mm[None], T0, T1,
+        use_depth, weak_threshold, plain)
+    g_r0, g_r1 = pyr.grad_r0[0], pyr.grad_r1[0]
+    if not use_depth:
+        return FramePyramid(g_r0, g_r1, torch.zeros_like(g_r0), torch.zeros_like(g_r1))
+    return FramePyramid(g_r0, g_r1, pyr.norm_r0[0], pyr.norm_r1[0])
+
+
+# ---------------------------------------------------------------------------
+# Single-frame matching (Detector.match_raw)
+# ---------------------------------------------------------------------------
+
+
+def coarse_scores_gemm(R: torch.Tensor, W_gemm: MatmulWeight, T: int,
+                       Kc: int) -> torch.Tensor:
+    """(C, H, W) responses -> raw scores (N, Hc, Wc) int32 of every
+    template at every T-strided position: the exact int8 GEMM, template-
+    major as the reference returns it."""
+    C, H, W = R.shape
+    Hc, Wc = H // T, W // T
+    raw = coarse_scores_gemm_flat_batched(R[None], W_gemm, T, Kc)[0]  # (P, N)
+    return raw.t().reshape(-1, Hc, Wc)
+
+
+def select_candidates(raw: torch.Tensor, total_features: torch.Tensor,
+                      valid_pos: torch.Tensor, threshold: float, top_k: int
+                      ) -> CoarseMatches:
+    """Threshold + top-k over the (N, Hc, Wc) coarse score volume, flat in
+    the reference's TEMPLATE-major order (ties: the lower flat index
+    first).  sim = 100 raw / (4 max(nf, 1)), divided tensor by tensor."""
+    N, Hc, Wc = raw.shape
+    den = 4.0 * total_features.clamp(min=1).to(torch.float32)
+    sim = 100.0 * raw.to(torch.float32) / den[:, None, None]
+    sim = torch.where(valid_pos, sim, -1.0).reshape(-1)
+    vals, idx = _topk_first_index(sim, min(top_k, sim.shape[0]))
+    t = torch.div(idx, Hc * Wc, rounding_mode="floor")
+    rem = idx % (Hc * Wc)
+    thr = torch.tensor(threshold, dtype=torch.float32, device=raw.device)
+    return CoarseMatches(
+        t.to(torch.int32),
+        torch.div(rem, Wc, rounding_mode="floor").to(torch.int32),
+        (rem % Wc).to(torch.int32),
+        vals,
+        vals >= thr,
+    )
+
+
+def refine_candidates_opencv(
+    R0: torch.Tensor,
+    feats0: LevelFeatures,
+    cand: CoarseMatches,
+    coarse_T: int,
+    threshold: float,
+    E0: int,
+    fine_T: int = 5,
+    plain: bool = False,
+) -> Matches:
+    """Single-frame walk: the B=1 call of refine_candidates_opencv_batched
+    over every candidate slot (K3 at B=1 on the card)."""
+    m = refine_candidates_opencv_batched(
+        R0[None], feats0, CoarseMatches(*(a[None] for a in cand)), coarse_T,
+        threshold, E0, fine_T, plain=plain,
+    )
+    return Matches(*(a[0] for a in m))

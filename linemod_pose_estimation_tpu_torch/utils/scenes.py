@@ -98,6 +98,41 @@ def bin_picking_batch(B: int, seed: int = 3):
     return np.stack(frames), np.stack(depths), truths
 
 
+def cuboid_mesh(dims=(0.088, 0.144, 0.076), subdiv: int = 18):
+    """A closed cuboid centred at the origin, (T, 3, 3) f32 triangles.
+
+    The default dimensions (metres, along the object's x, y, z) stand in
+    for the boxNew STL the committed banks were trained on: a PCA of the
+    model cloud in ``data/sweep_view00_clouds.npz`` gives ~0.148 x 0.093 x
+    0.076 m; axis-permuted to the bank's object frame and refined so that
+    renders at the bank's own poses and intrinsics reproduce
+    ``data/boxNew_rgbd_params.yml.gz``'s Rects within a few pixels.  Each
+    face is a grid of quads, `subdiv` segments along the longest edge and
+    proportionally fewer along the others: at the default 18, 1952
+    triangles (1984 padded to a multiple of 64, boxNew.stl's count).
+
+    Returns a ``utils.stl.Mesh``."""
+    from .stl import Mesh, _recompute_normals
+
+    d = np.asarray(dims, np.float64)
+    n = [max(1, int(round(subdiv * v / d.max()))) for v in d]
+    tris = []
+    for ax in range(3):  # the two faces normal to axis `ax`
+        u, v = [a for a in range(3) if a != ax]
+        gu = np.linspace(-d[u] / 2, d[u] / 2, n[u] + 1)
+        gv = np.linspace(-d[v] / 2, d[v] / 2, n[v] + 1)
+        for side in (-1.0, 1.0):
+            for i in range(n[u]):
+                for j in range(n[v]):
+                    q = np.zeros((4, 3))
+                    q[:, ax] = side * d[ax] / 2
+                    q[:, u] = [gu[i], gu[i + 1], gu[i + 1], gu[i]]
+                    q[:, v] = [gv[j], gv[j], gv[j + 1], gv[j + 1]]
+                    tris += [q[[0, 1, 2]], q[[0, 2, 3]]]
+    tris = np.asarray(tris, np.float32)
+    return Mesh(triangles=tris, normals=_recompute_normals(tris))
+
+
 def found_rate(valid, xs, ys, truths, tol: int = 8) -> tuple[int, int]:
     """(found, total): a planted object counts as found when some valid
     match lies within `tol` px of its origin in x and y."""

@@ -1,12 +1,13 @@
-"""The CUDA kernels K1, K2, K3 and the kernel path of BatchedMatcher
-against their plain PyTorch versions, on a card.  Every test here is
+"""The CUDA kernels K1, K2 (also at B=1, the port of K2b), K3, K4 and the
+kernel paths of BatchedMatcher and DetectionPipeline against their plain
+PyTorch versions, on a card.  Every test here is
 marked requires_cuda and skips without a CUDA device; the file imports no
 JAX, so it runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: bitwise equality (every output is an integer, bool, or the
-same f32 expression).
+same f32 expression); detect's Matches equal the committed JAX golden.
 """
 
 import numpy as np
@@ -14,13 +15,22 @@ import pytest
 import torch
 
 from linemod_pose_estimation_tpu_torch.models.detector import Detector
+from linemod_pose_estimation_tpu_torch.models.pipeline import DetectionPipeline
+from linemod_pose_estimation_tpu_torch.models.renderer import _pad_triangles
 from linemod_pose_estimation_tpu_torch.models.serving import BatchedMatcher
+from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
+from linemod_pose_estimation_tpu_torch.ops import _build
 from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
 from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
 from linemod_pose_estimation_tpu_torch.ops import features as TF
+from linemod_pose_estimation_tpu_torch.ops import match as TM
+from linemod_pose_estimation_tpu_torch.ops import raster as RA
+from linemod_pose_estimation_tpu_torch.utils import pointcloud as TP
 from linemod_pose_estimation_tpu_torch.utils import scenes as S
 
 BANK = "data/boxNew_rgbd_templates.yml.gz"
+PARAMS = "data/boxNew_rgbd_params.yml.gz"
+CASCADE_GOLDEN = "tests/data/torch_cascade_golden.npz"
 
 
 def _crops(frames=(4, 3)):
@@ -94,3 +104,55 @@ def test_batched_matcher_kernels_equal_plain(cuda):
     want = BatchedMatcher(td, cid, 70.0, B, plain=True, **kw).match_batch(rgbs, deps)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+def test_raster_kernel_equals_plain(cuda):
+    """K4 at the cascade's shapes (the cuboid, four bank poses, the
+    256x256 viewport) and an off-screen pose: depth, mask, shade."""
+    meta, glob = TemplateBank.read_params_yaml(PARAMS)
+    tris = torch.from_numpy(_pad_triangles(S.cuboid_mesh().triangles, 64)).to(cuda)
+    K = torch.tensor([[glob.focal_length_x, 0, 128.0], [0, glob.focal_length_y, 128.0],
+                      [0, 0, 1]], dtype=torch.float32, device=cuda).expand(5, 3, 3)
+    R = torch.tensor(np.concatenate([meta.R[[0, 700, 1400, 2000]], np.eye(3)[None]]),
+                     dtype=torch.float32, device=cuda)
+    T = torch.tensor(np.concatenate([meta.T[[0, 700, 1400, 2000]], [[10.0, 0.0, 0.5]]]),
+                     dtype=torch.float32, device=cuda)
+    coefs = RA.triangle_coefficients(tris, R, T, K)
+    zk, sk = RA.raster_zbuffer(coefs, 256, 256)
+    zp, sp = RA.raster_zbuffer_plain(coefs, 256, 256)
+    assert torch.equal(zk, zp) and torch.equal(sk, sp)
+    assert bool(torch.isfinite(zk[:4]).any()) and not bool(torch.isfinite(zk[4]).any())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("use_depth", [False, True])
+def test_preprocess_frame_kernels_equal_plain(cuda, use_depth):
+    """The single-frame preprocess at 480x640: its B=1 K1 and K2 launches
+    against the plain path."""
+    with np.load(CASCADE_GOLDEN) as z:
+        rgb = torch.from_numpy(z["rgb"][0]).to(cuda)
+        dep = torch.from_numpy(z["depth_mm"][0]).to(cuda)
+    got = TM.preprocess_frame(rgb, dep, use_depth=use_depth)
+    want = TM.preprocess_frame(rgb, dep, use_depth=use_depth, plain=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+def test_detect_on_the_card_launches_every_kernel(cuda):
+    """DetectionPipeline.detect at full width on golden frame 0: Matches
+    equal to the JAX reference's, a detection, and K1-K4 launched."""
+    with np.load(CASCADE_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    pipe = DetectionPipeline.from_files(BANK, PARAMS, S.cuboid_mesh(), device=cuda)
+    dep = torch.from_numpy(g["depth_mm"][0]).to(cuda)
+    cloud = TP.depth_to_cloud(TP.true_div(dep, 1000.0), pipe.K_render)
+    _build.reset_launch_counts()
+    dets, st = pipe.detect(g["rgb"][0], cloud, threshold=float(g["threshold"]),
+                           depth_mm=dep, return_stages=True)
+    for name, a in st.matches._asdict().items():
+        np.testing.assert_array_equal(a.cpu().numpy(), g["m_" + name][0], err_msg=name)
+    assert len(dets) >= 1
+    for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
+        assert _build.launch_counts[k] > 0, k
