@@ -37,7 +37,28 @@ from csrc/.  Phases, one JSON line each:
      / 0.01 mm), a detection on each object frame and none on the
      background frame; launch counts of K1-K4, detect ms per frame;
      then a control: the same frames with TF32 matmuls switched on must
-     fall outside POSE_TOL (so the limit sees reduced precision).
+     fall outside POSE_TOL (so the limit sees reduced precision);
+  7. the K5 path: BatchedMatcher(prune=False) (the exhaustive mode) gives
+     phase 2b's batch its 4096 candidates over the tiled bank, and
+     refine_candidates_pallas_batched refines them through K5 (launch
+     counts of that run, chain and exhaustive batch times); K5 against
+     its plain version, bitwise, on those candidates and on a set whose
+     windows reach past the frame's bottom-right edge, with CUDA event
+     times; the chain's Matches against the plain chain's and, frame by
+     frame, against refine_candidates, _slices and _conv; then on the
+     cascade golden frames with the untiled bank at threshold 91 the
+     exhaustive match_batch, the K5 chain and one make_matcher_fn frame
+     against the JAX reference (tests/data/torch_window_golden.npz);
+  8. the two-object path (the reference bench's configuration: the bank
+     under two class ids at thresholds 92 / 94, pools 56 B / 36 B):
+     MultiClassBatchedMatcher(prune_mode="pooled") on the cascade golden
+     frames against the JAX reference (each class's Matches and the
+     PooledStats), then B=32 (phase 2b's first 28 scenes and the 4
+     cascade frames) over the bank tiled to 10,624 per class (21,248 in
+     all): kernel path against plain path, the merged valid
+     matches against two single-class pooled batches', launch counts,
+     the merged batch time and the split time (the two single-class
+     batches, as the reference bench times its alternator).
 
 Then a kernels summary line, the card line, and last
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
@@ -62,6 +83,7 @@ BANK = os.path.join(REPO, "data", "boxNew_rgbd_templates.yml.gz")
 PARAMS = os.path.join(REPO, "data", "boxNew_rgbd_params.yml.gz")
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden.npz")
 CASCADE_GOLDEN = os.path.join(REPO, "tests", "data", "torch_cascade_golden.npz")
+WINDOW_GOLDEN = os.path.join(REPO, "tests", "data", "torch_window_golden.npz")
 # Degrees, mm between the card's poses and the reference's.  The card in
 # full f32 lands within 4e-5 deg / 1e-4 mm ("NVIDIA H100 80GB HBM3,
 # 700.00 W"); the TF32 control below must land outside.  The CPU tests'
@@ -81,6 +103,8 @@ KERNELS = {
                            "linemod_pose_estimation_tpu/ops/pallas_kernels.py:103"),
     "raster_zbuffer": ("K4", "linemod_pose_estimation_tpu_torch/csrc/raster_zbuffer.cu",
                        "linemod_pose_estimation_tpu/ops/pallas_raster.py:132"),
+    "refine_scores": ("K5", "linemod_pose_estimation_tpu_torch/csrc/refine_scores.cu",
+                      "linemod_pose_estimation_tpu/ops/pallas_kernels.py:228"),
 }
 
 
@@ -296,6 +320,207 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
     return launches6
 
 
+def timed(fn, reps: int = 1) -> list[float]:
+    """Host-clock ms of `reps` calls of fn(), each ended by a device sync."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def golden_frames(dev: torch.device):
+    with np.load(CASCADE_GOLDEN) as z:
+        return torch.from_numpy(z["rgb"]).to(dev), torch.from_numpy(z["depth_mm"]).to(dev)
+
+
+def check_golden(gold: dict, prefix: str, m, what: str) -> None:
+    for name, a in m._asdict().items():
+        require(np.array_equal(a.cpu().numpy(), gold[prefix + name]),
+                f"{what}: {name} differs from the reference")
+
+
+def k5_phase(dev, det, bank, rgbs, deps, perf: dict) -> dict:
+    """Phase 7 (the K5 path); fills perf["refine_scores"] and returns the
+    launch counts of the K5 chain's run."""
+    from linemod_pose_estimation_tpu_torch.models.detector import Detector
+    from linemod_pose_estimation_tpu_torch.models.serving import BatchedMatcher
+    from linemod_pose_estimation_tpu_torch.ops import _build
+    from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
+    from linemod_pose_estimation_tpu_torch.ops import match as M
+
+    cid = bank.class_id
+    xm = BatchedMatcher(det, cid, THRESHOLD, B_MAIN, top_k=128, device=dev)
+    xp = BatchedMatcher(det, cid, THRESHOLD, B_MAIN, top_k=128, device=dev, plain=True)
+    T0, T1, E0 = xm.T0, xm.T1, xm.E0
+
+    def chain(m=xm, plain=False):
+        R0, cands, _ = m.candidates(rgbs, deps)
+        return R0, cands, M.refine_candidates_pallas_batched(
+            R0, m.feats0, cands, T1, THRESHOLD, E0, fine_T=T0, plain=plain)
+
+    chain()  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    R0, cands, m5 = chain()
+    torch.cuda.synchronize()
+    chain_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.launch_counts)
+    for k in ("quantize_cg", "spread_response", "refine_scores"):
+        require(launches[k] > 0, f"kernel {k} was not launched by the K5 chain")
+    chain_repeats = timed(chain, 3)
+    exhaustive_ms = timed(lambda: xm.match_batch(rgbs, deps), 3)
+    R0p, cp, m5p = chain(xp, plain=True)
+    require(torch.equal(R0p, R0) and matches_equal(cp, cands),
+            "K5 chain: candidates differ from the plain path's")
+    require(matches_equal(m5, m5p), "K5 chain: kernel path != plain path")
+
+    K = cands.template_id.numel()
+    H, W = R0.shape[-2:]
+    plan = M.window_plan(R0.shape, xm.feats0, cands, T1, E0, T0)
+    slot = torch.arange(K, device=dev, dtype=torch.int32)
+    edge = plan._replace(anchor_y=(H - 1 - slot % 24).to(torch.int32),
+                         anchor_x=(W - 1 - slot % 24).to(torch.int32))
+    for name, pl in ((f"chain_K{K}", plan), (f"edge_K{K}", edge)):
+        run = lambda f: f(R0, *pl.operands(), window=24, frame_idx=pl.frame_idx)
+        got, ref = run(CK.refine_scores), run(CK.refine_scores_plain)
+        err = max_abs_err(got, ref)
+        require(err == 0, f"K5 {name} differs from its plain version")
+        perf["refine_scores"][name] = dict(
+            max_abs_err=err, nonzero_frac=float((got > 0).float().mean()),
+            features=int(pl.nf.sum()))
+        if pl is plan:
+            perf["refine_scores"][name].update(
+                ms=cuda_ms(lambda: run(CK.refine_scores), 20),
+                plain_ms=cuda_ms(lambda: run(CK.refine_scores_plain), 3))
+    for b in range(B_MAIN):
+        cb = M.CoarseMatches(*(a[b] for a in cands))
+        want = M.Matches(*(a[b] for a in m5))
+        for fname, got in (
+                ("gather", M.refine_candidates(R0[b], xm.feats0, cb, T1, THRESHOLD, fine_T=T0)),
+                ("slices", M.refine_candidates_slices(R0[b], xm.feats0, cb, T1, THRESHOLD,
+                                                      E0, fine_T=T0)),
+                ("conv", M.refine_candidates_conv(R0[b], xm.feats0, cb, T1, THRESHOLD,
+                                                  E0, fine_T=T0))):
+            require(matches_equal(got, want), f"frame {b}: refine_candidates "
+                    f"({fname}) differs from the K5 chain")
+    emit("k5_chain", batch=B_MAIN, templates=int(xm.feats1.count.numel()),
+         candidates=K, equal_kernel_vs_plain=True, refiners_agree=True,
+         launches=launches, valid_matches=int(m5.valid.sum()),
+         chain_batch_ms=chain_ms, chain_batch_ms_repeats=chain_repeats,
+         exhaustive_batch_ms=exhaustive_ms, K5=perf["refine_scores"])
+    del xm, xp
+
+    # -- the golden: the untiled bank on the cascade frames ------------------
+    with np.load(WINDOW_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    g_rgbs, g_deps = golden_frames(dev)
+    thr = float(gold["threshold"])
+    gd = Detector(bank.params, device=dev)
+    gd.attach_bank(bank)
+    gm = BatchedMatcher(gd, cid, thr, g_rgbs.shape[0], top_k=int(gold["top_k"]), device=dev)
+    R0, cands, _ = gm.candidates(g_rgbs, g_deps)
+    check_golden(gold, "x_", gm.refine(R0, cands), "exhaustive match_batch")
+    k5 = M.refine_candidates_pallas_batched(R0, gm.feats0, cands, gm.T1, thr, gm.E0,
+                                            fine_T=gm.T0)
+    check_golden(gold, "k5_", k5, "K5 chain")
+    check_golden(gold, "fn_", gd.make_matcher_fn(cid, thr)(g_rgbs[0], g_deps[0]),
+                 "make_matcher_fn")
+    emit("k5_golden", frames=int(g_rgbs.shape[0]), templates=bank.num_templates,
+         equal=True, valid_matches=int(k5.valid.sum()))
+    return launches
+
+
+def two_object_phase(dev, bank, rgbs, deps) -> dict:
+    """Phase 8 (the two-object path); returns the launch counts of the
+    B=32 merged run."""
+    from linemod_pose_estimation_tpu_torch.models.detector import Detector
+    from linemod_pose_estimation_tpu_torch.models.serving import (
+        BatchedMatcher, MultiClassBatchedMatcher, slice_settings)
+    from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
+    from linemod_pose_estimation_tpu_torch.ops import _build
+
+    cid = bank.class_id
+    cid2 = cid + "_second"
+    bank2 = TemplateBank(cid2, bank.params, bank.templates, f_cap=bank.f_cap)
+    with np.load(WINDOW_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    thrs = [float(t) for t in gold["two_object_thresholds"]]
+    top_k = int(gold["top_k"])
+
+    def matcher(d, B, **kw):
+        return MultiClassBatchedMatcher(d, [cid, cid2], thrs, B, top_k=top_k,
+                                        prune_mode="pooled", pool_coarse=56 * B,
+                                        pool_fine=36 * B, device=dev, **kw)
+
+    gd = Detector(bank.params, device=dev)
+    gd.attach_bank(bank)
+    gd.attach_bank(bank2)
+    g_rgbs, g_deps = golden_frames(dev)
+    gm = matcher(gd, g_rgbs.shape[0])
+    out = gm.match_batch(g_rgbs, g_deps)
+    for i, c in enumerate((cid, cid2)):
+        check_golden(gold, f"mc{i}_", out[c], f"two-object class {c}")
+    check_golden(gold, "mc_stats_", gm.last_pool, "two-object PooledStats")
+    emit("two_object_golden", frames=int(g_rgbs.shape[0]), templates_per_class=bank.num_templates,
+         thresholds=thrs, equal=True, valid_matches=[int(out[c].valid.sum()) for c in (cid, cid2)],
+         fallback=bool(gm.last_pool.fallback))
+    del gm
+
+    # The bin-picking scenes never reach 92 (best ~84), so the batch's last
+    # four frames are the cascade frames, which do: the merged-vs-split and
+    # kernel-vs-plain checks then see real matches.
+    rgbs = torch.cat([rgbs[:B_MAIN - len(g_rgbs)], g_rgbs])
+    deps = torch.cat([deps[:B_MAIN - len(g_deps)], g_deps])
+    reps = TILE_TO // bank.num_templates  # as phase 2b tiles
+    td = Detector(bank.params, device=dev)
+    td.attach_bank(bank.tile(reps, TILE_TO))
+    td.attach_bank(bank2.tile(reps, TILE_TO))
+    mk, mp = matcher(td, B_MAIN), matcher(td, B_MAIN, plain=True)
+    mk.match_batch(rgbs, deps)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    merged = mk.match_batch(rgbs, deps)
+    torch.cuda.synchronize()
+    merged_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.launch_counts)
+    for k in ("quantize_cg", "spread_response", "walk_scores"):
+        require(launches[k] > 0, f"kernel {k} was not launched by the two-object path")
+    stats = mk.last_pool
+    merged_repeats = timed(lambda: mk.match_batch(rgbs, deps), 3)
+    plain = mp.match_batch(rgbs, deps)
+    for c in (cid, cid2):
+        require(matches_equal(merged[c], plain[c]), f"two-object {c}: kernel path != plain path")
+    require(matches_equal(stats, mp.last_pool), "two-object PooledStats: kernel != plain")
+    del mp
+    singles = [BatchedMatcher(td, c, t, B_MAIN, device=dev, **slice_settings(B_MAIN))
+               for c, t in zip((cid, cid2), thrs)]
+    split = lambda: [s.match_batch(rgbs, deps) for s in singles]
+    split()  # warm-up
+    split_repeats = timed(split, 3)
+
+    def vset(m):
+        v = m.valid.cpu().numpy()
+        cols = [a.cpu().numpy()[v] for a in (m.template_id, m.x, m.y, m.similarity)]
+        return set(zip(*(c.tolist() for c in cols)))
+
+    for c, single in zip((cid, cid2), split()):
+        require(vset(merged[c]) == vset(single),
+                f"two-object {c}: merged valid matches != the single-class batch's")
+    emit("two_object_batch", batch=B_MAIN, templates=int(mk.feats1.count.numel()),
+         thresholds=thrs, equal_kernel_vs_plain=True, merged_equals_split=True,
+         launches=launches, stats={k: v.tolist() for k, v in stats._asdict().items()},
+         valid_matches=[int(merged[c].valid.sum()) for c in (cid, cid2)],
+         merged_batch_ms=merged_ms, merged_batch_ms_repeats=merged_repeats,
+         split_batch_ms_repeats=split_repeats,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -466,6 +691,9 @@ def main() -> int:
     emit("walk_vs_plain", K3=perf["walk_scores"])
 
     launches6 = cascade_phases(dev, perf)
+    del main_m, plain_m, fb
+    launches7 = k5_phase(dev, det, bank, rgbs, deps, perf)
+    two_object_phase(dev, bank, rgbs, deps)
 
     # -- summary -------------------------------------------------------------
     summary = []
@@ -476,7 +704,8 @@ def main() -> int:
         summary.append(dict(
             name=f"{name} {key}", route="cuda", source=src, replaces=replaces,
             launches=(launches6["spread_response"] if key == "spread_response_b1"
-                      else launches6[key] if key == "raster_zbuffer" else launches[key]),
+                      else launches6[key] if key == "raster_zbuffer"
+                      else launches7[key] if key == "refine_scores" else launches[key]),
             max_abs_err=max(v["max_abs_err"] for v in shapes.values()),
             ms=sum(shapes[s]["ms"] for s in main_shapes),
             plain_ms=sum(shapes[s]["plain_ms"] for s in main_shapes),

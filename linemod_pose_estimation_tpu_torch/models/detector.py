@@ -1,13 +1,15 @@
 """The Detector: cv::linemod::Detector-style host API over the scoring
 engine — the port of ``linemod_pose_estimation_tpu/models/detector.py``
-without template extraction (`add_template`, `write`) and the serving
-fn (`make_matcher_fn`), which are not ported yet.
+without template extraction (`add_template`, `write`), which is not
+ported yet.
 
 `match_raw` / `match` are the single-frame engine: preprocess (K1, K2 at
 B=1), the exact int8 GEMM over every coarse position, template-major
-top-k selection, and cv::linemod's exact walk (K3 at B=1).  Frame
-batches go through ``models.serving.BatchedMatcher``.  `device` places
-the bank operands and the computation.
+top-k selection, and cv::linemod's exact walk (K3 at B=1).
+`make_matcher_fn` is the reference's serving fn: the same engine with
+the position-major GEMM and select.  Frame batches go through
+``models.serving.BatchedMatcher``.  `device` places the bank operands
+and the computation.
 """
 
 from __future__ import annotations
@@ -138,3 +140,41 @@ class Detector:
         cand = M.select_candidates(raw, feats1.count, vpos, threshold - 5.0, top_k)
         return M.refine_candidates_opencv(R0, feats0, cand, T1, threshold,
                                           E0=bank.extent(0), fine_T=T0)
+
+    # -- serving fn ---------------------------------------------------------
+
+    def make_matcher_fn(self, class_id: str, threshold: float, top_k: int = 512,
+                        approx_select: bool = True,
+                        use_pallas_refine: bool | None = None):
+        """fn(rgb, depth_mm=None) -> Matches (top_k,) of one frame:
+        preprocess at B=1, the position-major exact int8 GEMM, the top_k
+        select at threshold - 5 and cv::linemod's walk.  The reference's
+        `approx_select` picks approx_max_k over an exact top_k; the port's
+        select is exact either way (on the reference's CPU backend the two
+        agree).  `use_pallas_refine=False` runs the walk's plain version
+        even on the card; otherwise CUDA tensors launch K3."""
+        p = self.params
+        T0, T1 = p.t_pyramid
+        bank = self.bank(class_id)
+        feats1, feats0, W_gemm = self._bank_operands(class_id)
+        Kc1, E0 = bank.max_cell_extent(1), bank.extent(0)
+        plain = use_pallas_refine is False
+
+        def fn(rgb, depth_mm=None) -> M.Matches:
+            rgb = to_device(rgb, torch.uint8, self.device)
+            if depth_mm is not None:
+                depth_mm = to_device(depth_mm, torch.float32, self.device)
+            pyr = M.preprocess_frame(rgb, depth_mm, T0=T0, T1=T1,
+                                     use_depth=p.use_depth_normal,
+                                     weak_threshold=p.color.weak_threshold)
+            R0, R1 = self._response_stacks(pyr)
+            raw = M.coarse_scores_gemm_flat(R1, W_gemm, T1, Kc1)
+            Hc, Wc = R1.shape[1] // T1, R1.shape[2] // T1
+            vpos = M.position_validity_flat(feats1.size, T1, Hc, Wc)
+            cand = M.select_candidates_flat(raw[None], feats1.count, vpos,
+                                            threshold - 5.0, top_k, Wc)
+            return M.refine_candidates_opencv(
+                R0, feats0, M.CoarseMatches(*(a[0] for a in cand)), T1,
+                threshold, E0=E0, fine_T=T0, plain=plain)
+
+        return fn

@@ -29,7 +29,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = ("quantize_cg.cu", "spread_response.cu", "walk_scores.cu",
-           "raster_zbuffer.cu")
+           "raster_zbuffer.cu", "refine_scores.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # No FMA contraction: fastAtan2's polynomial (K1) and the rasterizer's
@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 
 # One plain integer per kernel: each wrapper adds one where it launches.
 launch_counts = {"quantize_cg": 0, "spread_response": 0, "walk_scores": 0,
-                 "raster_zbuffer": 0}
+                 "raster_zbuffer": 0, "refine_scores": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +55,9 @@ _SIGNATURES = {
     "lpe_walk_scores": (_P,) * 9 + (_I,) * 8 + (_P,),
     # (coefs, zbuf, sbuf, P, Tn, H, W, device, stream)
     "lpe_raster_zbuffer": (_P,) * 3 + (_I,) * 5 + (_P,),
+    # (R, oris, dys, dxs, nf, anchor_y, anchor_x, frame, out,
+    #  C, H, W, K, F, window, device, stream)
+    "lpe_refine_scores": (_P,) * 9 + (_I,) * 7 + (_P,),
 }
 
 _lib = None

@@ -13,10 +13,20 @@ The production path is the pooled exact matcher:
   refine_candidates_opencv_batched — cv::linemod's exact 16 x 16 local
       walk, K3 on the card.
 
+The exhaustive mode (BatchedMatcher(prune=False)) is
+coarse_scores_gemm_flat_batched and a per-frame select_candidates_flat,
+then the walk.  The window refiners (refine_candidates, _slices, _conv,
+_pallas, _pallas_batched) score a dense 24 x 24 window around each
+candidate; the last two run K5.  The two-object path
+(MultiClassBatchedMatcher) is concat_level_features,
+match_pooled_multiclass, merge_candidates_sorted, the walk and
+split_matches_by_class.
+
 The single-frame engine (``models/detector.py::Detector.match_raw``) is
 preprocess_frame (the B=1 call of the batched preprocess), the
 exhaustive GEMM (coarse_scores_gemm), the reference's template-major
-select_candidates and refine_candidates_opencv (the B=1 walk).
+select_candidates and refine_candidates_opencv (the B=1 walk);
+``Detector.make_matcher_fn`` takes the position-major GEMM and select.
 
 Every output equals the reference's bit for bit.  What changed on the way:
 
@@ -26,9 +36,9 @@ Every output equals the reference's bit for bit.  What changed on the way:
 - The reference's one-hot gather matmuls and one-hot compaction matmul
   are TPU workarounds; here they are direct index gathers and a
   cumsum + scatter compaction (same frame-major ascending order).
-- The reference's three ``lax.cond`` fallbacks become host branches on
-  flags read with ``.item()``: one device sync per flag, and only the
-  taken branch runs, as under ``lax.cond``.
+- The reference's ``lax.cond`` fallbacks become host branches on flags
+  read with ``.item()``: one device sync per flag, and only the taken
+  branch runs, as under ``lax.cond``.
 - Top-k keeps the reference's tie order (lower flat index first) by
   selecting on a unique 64-bit key (value bits, then inverted index).
 """
@@ -711,15 +721,35 @@ def match_pooled_fine_with_fallback(
         )
         pp = pool_plan_from_margins(margins, pool1)
     t_int = int_score_threshold(threshold, total_features).to(torch.int32)
+    cands, n_valid, stats = _pooled_selects(
+        Rb, pp, t_int, W_gemm, W_fine, total_features, vpos_flat,
+        [(vpos_flat, threshold)], T, Kc, g, pool1, pool2, top_k, Wc, r_cap)
+    return cands[0], n_valid[0], stats
+
+
+def _pooled_selects(
+    Rb, pp: PoolPlan, t_int, W_gemm, W_fine, total_features, vpos_flat,
+    classes, T, Kc, g, pool1, pool2, top_k, Wc, r_cap,
+) -> tuple[list[CoarseMatches], list[torch.Tensor], PooledStats]:
+    """The pooled matcher after its coarse plan `pp`: the g x g fine
+    re-test at the pool (pool2; on overflow the coarse pool is scored
+    instead), the exact pooled GEMM and one select per class, and the
+    exhaustive GEMM when the coarse pool or a select range overflows.
+    `classes` holds (vpos_c (P, N), threshold_c) per class: each class
+    selects over its own columns at its own threshold.  Returns per-class
+    lists of CoarseMatches (B, top_k) and n_valid (B,), and PooledStats."""
+    B = Rb.shape[0]
+    dev = Rb.device
     P2 = min(pool2, pool1)
     false = torch.zeros((), dtype=torch.bool, device=dev)
 
     if pp.overflow.item():
-        # Coarse pool overflowed: the fine stage and the select never run.
+        # Coarse pool overflowed: the fine stage and the selects never run.
         z = torch.zeros((B, top_k), dtype=torch.int32, device=dev)
-        cands = CoarseMatches(z, z, z, torch.full((B, top_k), -1.0, device=dev),
+        empty = CoarseMatches(z, z, z, torch.full((B, top_k), -1.0, device=dev),
                               torch.zeros((B, top_k), dtype=torch.bool, device=dev))
-        n_valid = torch.zeros(B, dtype=torch.int32, device=dev)
+        cands = [empty] * len(classes)
+        n_valid = [torch.zeros(B, dtype=torch.int32, device=dev)] * len(classes)
         sel_of, of2 = false, false
         fine_total = torch.zeros((), dtype=torch.int64, device=dev)
         fine_m = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -738,22 +768,130 @@ def match_pooled_fine_with_fallback(
             frame, pos, keep = pp.frame[idx2], pp.pos[idx2], keep2
             starts, m_surv = torch.cumsum(fine_m, 0) - fine_m, fine_m
         raw = coarse_scores_gemm_pooled(Rb, W_gemm, frame, pos, T, Kc)
-        cands, n_valid, sel_of = select_candidates_pooled(
-            raw, total_features, vpos_flat, frame, pos, keep, starts, m_surv,
-            threshold, top_k, Wc, r_cap,
-        )
+        cands, n_valid, sel_of = [], [], false
+        for vpos_c, thr_c in classes:
+            c, nv, so = select_candidates_pooled(
+                raw, total_features, vpos_c, frame, pos, keep, starts, m_surv,
+                thr_c, top_k, Wc, r_cap,
+            )
+            cands.append(c)
+            n_valid.append(nv)
+            sel_of = sel_of | so
     fallback = pp.overflow | sel_of
     if fallback.item():
         raw = coarse_scores_gemm_flat_batched(Rb, W_gemm, T, Kc)
-        cands = select_candidates_flat(
-            raw, total_features, vpos_flat, threshold, top_k, Wc)
-        n_valid = cands.valid.sum(dim=1).to(torch.int32)
+        cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k, Wc)
+                 for vpos_c, thr_c in classes]
+        n_valid = [c.valid.sum(dim=1).to(torch.int32) for c in cands]
     stats = PooledStats(
         coarse_total=pp.total, coarse_m=pp.m_survivors,
         coarse_overflow=pp.overflow, fine_total=fine_total, fine_m=fine_m,
         fine_overflow=of2, sel_overflow=sel_of, fallback=fallback,
     )
     return cands, n_valid, stats
+
+
+# ---------------------------------------------------------------------------
+# Several classes in one pass (the two-object path)
+# ---------------------------------------------------------------------------
+
+
+def concat_level_features(
+    feats_list: Sequence[LevelFeatures],
+) -> tuple[LevelFeatures, tuple[int, ...]]:
+    """Merge several classes' LevelFeatures into ONE template axis (each
+    padded with dead slots to the widest Fmax).  Returns (merged, bases):
+    class i owns rows [bases[i], bases[i+1]); subtract to re-base ids."""
+    fmax = max(int(f.oris.shape[1]) for f in feats_list)
+    pad = lambda a: torch.nn.functional.pad(
+        a, (0, 0) * (a.dim() - 2) + (0, fmax - a.shape[1]))
+    sizes = [int(f.oris.shape[0]) for f in feats_list]
+    bases = tuple(sum(sizes[:i]) for i in range(len(sizes)))
+    merged = LevelFeatures(
+        offsets=torch.cat([pad(f.offsets) for f in feats_list]),
+        oris=torch.cat([pad(f.oris) for f in feats_list]),
+        live=torch.cat([pad(f.live) for f in feats_list]),
+        count=torch.cat([f.count for f in feats_list]),
+        size=torch.cat([f.size for f in feats_list]),
+    )
+    return merged, bases
+
+
+def match_pooled_multiclass(
+    Rb: torch.Tensor,
+    W_gemm: MatmulWeight,
+    W_cell: MatmulWeight,
+    W_fine: MatmulWeight,
+    total_features: torch.Tensor,
+    vpos_flat: torch.Tensor,
+    class_slices: Sequence[tuple[int, int]],
+    thresholds: Sequence[float],
+    T: int,
+    Kc: int,
+    g: int,
+    pool1: int,
+    pool2: int,
+    top_k: int,
+    Wc: int,
+    r_cap: int = 128,
+) -> tuple[list[CoarseMatches], list[torch.Tensor], PooledStats]:
+    """The pooled matcher over a MERGED bank: one margin pass and one fine
+    re-test, both at min(thresholds) (a survivor superset for every
+    class), one exact pooled GEMM over the merged template axis, then one
+    select per class over its own columns (`class_slices`) at its own
+    threshold.  Fallbacks as in the single-class path, host branches as
+    there.  Returns ([CoarseMatches (B, top_k) per class], [n_valid (B,)
+    per class], PooledStats)."""
+    if T % g != 0:
+        raise ValueError(f"g={g} must divide T={T}")
+    thr_min = min(thresholds)
+    margins = position_margins_batched(
+        Rb, W_cell, total_features, vpos_flat, thr_min, T, Kc)
+    pp = pool_plan_from_margins(margins, pool1)
+    # The reference computes this t_int from a Python float (a static
+    # argument there): (thr - 1e-3) * 0.04 in double, rounded to f32 once.
+    scale = torch.tensor((thr_min - 1e-3) * 0.04, dtype=torch.float32,
+                         device=Rb.device)
+    t_int = torch.ceil(scale * total_features.to(torch.float32) - 1e-4).to(torch.int32)
+    col = torch.arange(total_features.shape[0], device=Rb.device)
+    classes = [(vpos_flat & ((col >= lo) & (col < hi))[None, :], thr)
+               for (lo, hi), thr in zip(class_slices, thresholds)]
+    return _pooled_selects(Rb, pp, t_int, W_gemm, W_fine, total_features,
+                           vpos_flat, classes, T, Kc, g, pool1, pool2, top_k,
+                           Wc, r_cap)
+
+
+def merge_candidates_sorted(
+    cands: Sequence[CoarseMatches],
+) -> tuple[CoarseMatches, torch.Tensor]:
+    """Concatenate per-class (B, K) candidates and re-sort each frame so
+    the valid candidates form ONE similarity-sorted prefix (the walk's
+    skip needs it); ties keep the concatenated order, as the reference's
+    top_k.  Returns (merged (B, sum K), n_valid (B,))."""
+    cat = CoarseMatches(*(torch.cat(a, dim=1) for a in zip(*cands)))
+    key = torch.where(cat.valid, cat.similarity, float("-inf"))
+    _, idx = _topk_first_index(key, key.shape[1])
+    merged = CoarseMatches(*(torch.gather(a, 1, idx) for a in cat))
+    return merged, cat.valid.sum(dim=1).to(torch.int32)
+
+
+def split_matches_by_class(
+    m: Matches, class_slices: Sequence[tuple[int, int]], top_k: int
+) -> list[Matches]:
+    """Split walked merged-bank matches into per-class (B, top_k) records:
+    a class's slots are the frame's top_k by similarity among its valid
+    matches (ties in slot order), every slot's id re-based to the class's
+    own bank, the filler's too."""
+    out = []
+    for lo, hi in class_slices:
+        mine = m.valid & (m.template_id >= lo) & (m.template_id < hi)
+        key = torch.where(mine, m.similarity, float("-inf"))
+        _, idx = _topk_first_index(key, min(top_k, key.shape[1]))
+        take = lambda a: torch.gather(a, 1, idx)
+        out.append(Matches(template_id=take(m.template_id) - lo, x=take(m.x),
+                           y=take(m.y), similarity=take(m.similarity),
+                           valid=take(mine)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -876,6 +1014,216 @@ def refine_candidates_opencv_batched(
 
 
 # ---------------------------------------------------------------------------
+# Window refiners (kernel K5): every offset of a dense window x window
+# region around each coarse candidate, the LAST maximum wins
+# ---------------------------------------------------------------------------
+#
+# Five ports of the reference's five window refiners.  They agree with
+# each other while every feature offset is <= E0 - 1, which holds for
+# every bank (extent() is the max offset + 1 rounded up to 8); each one
+# keeps its own reference's offset clip so it also equals its counterpart
+# beyond that: gather — none; slices — positions clipped to Hp - window;
+# conv — offsets to [0, E0 - 1]; pallas — offsets to [0, E0].  The
+# reference's conv is a batch-grouped int8 convolution (an MXU
+# workaround); a direct window sum with the conv's clip is the same sum.
+
+
+def _window_anchors(cand: CoarseMatches, coarse_T: int, fine_T: int, H: int,
+                    W: int, min_y: int = 0):
+    """Window origins (anchor_y, anchor_x): a coarse cell i covers level-0
+    positions from i*2T on, the plateau reaches fine_T - 1 back."""
+    ay = cand.cell_y * (coarse_T * 2) - (fine_T - 1)
+    ax = cand.cell_x * (coarse_T * 2) - (fine_T - 1)
+    return ay.clamp(min=min_y).clamp(max=H - 1), ax.clamp(0, W - 1)
+
+
+def _window_matches(scores, t, cnt, ay, ax, valid, threshold: float) -> Matches:
+    """Matches from raw (K, window, window) scores: the LAST maximum in
+    row-major order (spreading covers forward offsets only, so a plateau
+    extends toward the top-left of the true position), sim = 100 raw /
+    (4 max(nf, 1))."""
+    K, window = scores.shape[:2]
+    flat = scores.reshape(K, -1)
+    best = flat.shape[1] - 1 - flat.flip(1).argmax(dim=1)  # argmax: first max
+    raw = torch.gather(flat, 1, best[:, None])[:, 0]
+    sim = 100.0 * raw.to(torch.float32) / (4.0 * cnt.clamp(min=1).to(torch.float32))
+    thr = torch.tensor(threshold, dtype=torch.float32, device=scores.device)
+    return Matches(
+        template_id=t.to(torch.int32),
+        x=(ax + best % window).to(torch.int32),
+        y=(ay + torch.div(best, window, rounding_mode="floor")).to(torch.int32),
+        similarity=sim,
+        valid=valid & (sim >= thr),
+    )
+
+
+def _window_refine(R0, feats0, cand, coarse_T, threshold, fine_T, window,
+                   origins, min_y: int = 0) -> Matches:
+    """Single-frame window refiner over (K,) candidates: `origins(ay, ax,
+    offs)` gives each feature's window origin (K, F) — the refiner's own
+    clip — and live slots are summed by the plain window sum."""
+    from . import cuda_kernels as CK
+
+    C, H, W = R0.shape
+    ay, ax = _window_anchors(cand, coarse_T, fine_T, H, W, min_y)
+    t = cand.template_id.long()
+    ys, xs = origins(ay, ax, feats0.offsets[t])
+    frame = torch.zeros(t.shape[0], dtype=torch.int32, device=R0.device)
+    scores = CK.window_sums(R0[None], frame, feats0.oris[t], ys, xs,
+                            feats0.live[t], window)
+    return _window_matches(scores, t, feats0.count[t], ay, ax, cand.valid, threshold)
+
+
+def refine_candidates(
+    R0: torch.Tensor,
+    feats0: LevelFeatures,
+    cand: CoarseMatches,
+    coarse_T: int,
+    threshold: float,
+    fine_T: int = 5,
+    window: int = 24,
+) -> Matches:
+    """The gather refiner: (C, H, W) responses, (K,) candidates; feature
+    offsets unclipped, reads outside the frame (either side) count 0.
+    The reference gathers all (K, F, window, window) reads at once; here
+    one feature slot at a time (the same integer sum)."""
+    return _window_refine(
+        R0, feats0, cand, coarse_T, threshold, fine_T, window,
+        lambda ay, ax, offs: (ay[:, None] + offs[..., 0], ax[:, None] + offs[..., 1]))
+
+
+def refine_candidates_slices(
+    R0: torch.Tensor,
+    feats0: LevelFeatures,
+    cand: CoarseMatches,
+    coarse_T: int,
+    threshold: float,
+    E0: int = 256,
+    fine_T: int = 5,
+    window: int = 24,
+    anchor_min_y: int = 0,
+) -> Matches:
+    """The slice refiner: each feature's window slices a frame padded by
+    window + E0 (bottom/right), its origin clipped to [0, Hp - window];
+    `anchor_min_y` raises the anchor row's lower clip (the row-sharded
+    matcher's halo)."""
+    C, H, W = R0.shape
+    Hp, Wp = H + window + E0, W + window + E0
+
+    def origins(ay, ax, offs):
+        return ((ay[:, None] + offs[..., 0]).clamp(0, Hp - window),
+                (ax[:, None] + offs[..., 1]).clamp(0, Wp - window))
+
+    return _window_refine(R0, feats0, cand, coarse_T, threshold, fine_T, window,
+                          origins, min_y=anchor_min_y)
+
+
+def refine_candidates_conv(
+    R0: torch.Tensor,
+    feats0: LevelFeatures,
+    cand: CoarseMatches,
+    coarse_T: int,
+    threshold: float,
+    E0: int,
+    fine_T: int = 5,
+    window: int = 24,
+) -> Matches:
+    """The reference's one-hot-filter convolution refiner, as the direct
+    window sum it computes: offsets clipped to [0, E0 - 1] (its filter
+    size), reads past the frame 0."""
+    return _window_refine(
+        R0, feats0, cand, coarse_T, threshold, fine_T, window,
+        lambda ay, ax, offs: (ay[:, None] + offs[..., 0].clamp(0, E0 - 1),
+                              ax[:, None] + offs[..., 1].clamp(0, E0 - 1)))
+
+
+class WindowPlan(NamedTuple):
+    """K5's operands for K candidates (flattened over frames), plus what
+    turns its scores into Matches."""
+
+    t: torch.Tensor  # (K,) int64 template id
+    nf: torch.Tensor  # (K,) int32 feature count: slots [0, nf) are summed
+    anchor_y: torch.Tensor  # (K,) int32 window origin
+    anchor_x: torch.Tensor  # (K,) int32
+    oris: torch.Tensor  # (K, F) int32, live slots first
+    dys: torch.Tensor  # (K, F) int32, clipped to [0, E0]
+    dxs: torch.Tensor  # (K, F) int32
+    frame_idx: torch.Tensor | None  # (K,) int32 (batched R0), else None
+
+    def operands(self):
+        return (self.oris, self.dys, self.dxs, self.nf, self.anchor_y, self.anchor_x)
+
+
+def window_plan(R0_shape, feats0: LevelFeatures, cand: CoarseMatches,
+                coarse_T: int, E0: int, fine_T: int = 5) -> WindowPlan:
+    """K5's operands: (C, H, W) with (K,) candidates, or (B, C, H, W) with
+    (B, K) candidates (each slot reads its own frame).  Each candidate's
+    feature slots are compacted live-first, since K5 sums slots f < nf."""
+    H, W = R0_shape[-2:]
+    flat = CoarseMatches(*(a.reshape(-1) for a in cand))
+    ay, ax = _window_anchors(flat, coarse_T, fine_T, H, W)
+    t = flat.template_id.long()
+    offs, oris, _ = _compact_live_slots(feats0.offsets[t], feats0.oris[t], feats0.live[t])
+    frame = None
+    if len(R0_shape) == 4:
+        B, K = cand.template_id.shape
+        frame = torch.arange(B, dtype=torch.int32, device=t.device).repeat_interleave(K)
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    return WindowPlan(
+        t=t, nf=i32(feats0.count[t]), anchor_y=i32(ay), anchor_x=i32(ax),
+        oris=i32(oris), dys=i32(offs[..., 0].clamp(0, E0)),
+        dxs=i32(offs[..., 1].clamp(0, E0)), frame_idx=frame,
+    )
+
+
+def _refine_k5(R0, feats0, cand, coarse_T, threshold, E0, fine_T, window,
+               plain) -> Matches:
+    from . import cuda_kernels as CK
+
+    plan = window_plan(R0.shape, feats0, cand, coarse_T, E0, fine_T)
+    k5 = CK.refine_scores_plain if plain else CK.refine_scores
+    scores = k5(R0, *plan.operands(), window=window, frame_idx=plan.frame_idx)
+    return _window_matches(scores, plan.t, plan.nf, plan.anchor_y, plan.anchor_x,
+                           cand.valid.reshape(-1), threshold)
+
+
+def refine_candidates_pallas(
+    R0: torch.Tensor,
+    feats0: LevelFeatures,
+    cand: CoarseMatches,
+    coarse_T: int,
+    threshold: float,
+    E0: int,
+    fine_T: int = 5,
+    window: int = 24,
+    plain: bool = False,
+) -> Matches:
+    """The K5 refiner over one frame: (C, H, W) responses, (K,)
+    candidates; offsets clipped to [0, E0].  Scores come from K5 on the
+    card (ops/cuda_kernels.refine_scores) or its plain version
+    (`plain=True`, or CPU tensors)."""
+    return _refine_k5(R0, feats0, cand, coarse_T, threshold, E0, fine_T, window, plain)
+
+
+def refine_candidates_pallas_batched(
+    R0: torch.Tensor,
+    feats0: LevelFeatures,
+    cand: CoarseMatches,
+    coarse_T: int,
+    threshold: float,
+    E0: int,
+    fine_T: int = 5,
+    window: int = 24,
+    plain: bool = False,
+) -> Matches:
+    """The K5 refiner over a frame batch: (B, C, H, W) responses, (B, K)
+    candidates, ONE K5 launch over all B*K (each reads its own frame)."""
+    B, K = cand.template_id.shape
+    m = _refine_k5(R0, feats0, cand, coarse_T, threshold, E0, fine_T, window, plain)
+    return Matches(*(a.reshape(B, K) for a in m))
+
+
+# ---------------------------------------------------------------------------
 # Frame preprocessing: quantize + spread + respond at both pyramid levels
 # ---------------------------------------------------------------------------
 
@@ -989,15 +1337,20 @@ def preprocess_frame(
 # ---------------------------------------------------------------------------
 
 
+def coarse_scores_gemm_flat(R: torch.Tensor, W_gemm: MatmulWeight, T: int,
+                            Kc: int) -> torch.Tensor:
+    """(C, H, W) responses -> raw scores (Hc*Wc, N) int32 of every template
+    at every T-strided position, position-major: the exact int8 GEMM of
+    one frame."""
+    return coarse_scores_gemm_flat_batched(R[None], W_gemm, T, Kc)[0]
+
+
 def coarse_scores_gemm(R: torch.Tensor, W_gemm: MatmulWeight, T: int,
                        Kc: int) -> torch.Tensor:
-    """(C, H, W) responses -> raw scores (N, Hc, Wc) int32 of every
-    template at every T-strided position: the exact int8 GEMM, template-
-    major as the reference returns it."""
+    """coarse_scores_gemm_flat, template-major (N, Hc, Wc) as the reference
+    returns it."""
     C, H, W = R.shape
-    Hc, Wc = H // T, W // T
-    raw = coarse_scores_gemm_flat_batched(R[None], W_gemm, T, Kc)[0]  # (P, N)
-    return raw.t().reshape(-1, Hc, Wc)
+    return coarse_scores_gemm_flat(R, W_gemm, T, Kc).t().reshape(-1, H // T, W // T)
 
 
 def select_candidates(raw: torch.Tensor, total_features: torch.Tensor,

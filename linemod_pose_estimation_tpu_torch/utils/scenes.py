@@ -80,6 +80,31 @@ def golden_batch(seed: int = 0):
     return np.stack(frames), np.stack(depths), truths
 
 
+# Templates of the committed RGB-D bank that match golden_crops() at
+# threshold 70, then a stride sample of the rest of the bank (64 in all):
+# a small bank for the CPU tests.
+CROP_MATCHING = [25, 42, 158, 175, 179, 192, 196, 308, 329, 346, 350, 363, 908,
+                 1501, 2540]
+CROP_BANK_SUBSET = CROP_MATCHING + [
+    i for i in range(0, 2652, 53) if i not in CROP_MATCHING][:49]
+
+
+def golden_crops(frames=(4, 3)):
+    """240x320 crops of golden_batch(0) frames centred on their objects:
+    (rgbs (n, 240, 320, 3) u8, depths (n, 240, 320) f32)."""
+    rgbs, deps, truths = golden_batch(0)
+    views = load_views()
+    out_r, out_d = [], []
+    for b in frames:
+        v, x, y = truths[b][0]
+        w, h = views[v][3][2:]
+        cy = int(np.clip(y + h // 2 - 120, 0, 240))
+        cx = int(np.clip(x + w // 2 - 160, 0, 320))
+        out_r.append(rgbs[b, cy:cy + 240, cx:cx + 320])
+        out_d.append(deps[b, cy:cy + 240, cx:cx + 320])
+    return np.stack(out_r), np.stack(out_d)
+
+
 def bin_picking_batch(B: int, seed: int = 3):
     """B frames, each with two random committed views planted."""
     views = load_views()

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2 (also at B=1, the port of K2b), K3, K4 and the
-kernel paths of BatchedMatcher and DetectionPipeline against their plain
+"""The CUDA kernels K1, K2 (also at B=1, the port of K2b), K3, K4, K5 and
+the kernel paths of BatchedMatcher, the K5 refiner,
+MultiClassBatchedMatcher and DetectionPipeline against their plain
 PyTorch versions, on a card.  Every test here is
 marked requires_cuda and skips without a CUDA device; the file imports no
 JAX, so it runs on a machine with a card and no JAX:
@@ -17,7 +18,8 @@ import torch
 from linemod_pose_estimation_tpu_torch.models.detector import Detector
 from linemod_pose_estimation_tpu_torch.models.pipeline import DetectionPipeline
 from linemod_pose_estimation_tpu_torch.models.renderer import _pad_triangles
-from linemod_pose_estimation_tpu_torch.models.serving import BatchedMatcher
+from linemod_pose_estimation_tpu_torch.models.serving import (
+    BatchedMatcher, MultiClassBatchedMatcher)
 from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
 from linemod_pose_estimation_tpu_torch.ops import _build
 from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
@@ -32,20 +34,6 @@ BANK = "data/boxNew_rgbd_templates.yml.gz"
 PARAMS = "data/boxNew_rgbd_params.yml.gz"
 CASCADE_GOLDEN = "tests/data/torch_cascade_golden.npz"
 
-
-def _crops(frames=(4, 3)):
-    """240x320 crops of golden-batch frames centred on their objects."""
-    rgbs, deps, truths = S.golden_batch(0)
-    views = S.load_views()
-    out_r, out_d = [], []
-    for b in frames:
-        v, x, y = truths[b][0]
-        w, h = views[v][3][2:]
-        cy = int(np.clip(y + h // 2 - 120, 0, 240))
-        cx = int(np.clip(x + w // 2 - 160, 0, 320))
-        out_r.append(rgbs[b, cy:cy + 240, cx:cx + 320])
-        out_d.append(deps[b, cy:cy + 240, cx:cx + 320])
-    return np.stack(out_r), np.stack(out_d)
 
 
 @pytest.fixture
@@ -92,6 +80,32 @@ def test_walk_kernel_equals_plain(cuda):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("batched", [True, False])
+def test_refine_scores_kernel_equals_plain(cuda, batched):
+    """K5 at the K5 chain's widths (24 x 24 window, Fmax 128, C=16
+    480x640), anchors over the frame and at its bottom-right edge, ragged
+    nf (0 and a full row included)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    B, K, F, C, H, W = (4, 512, 128, 16, 480, 640) if batched else (1, 256, 128, 16, 480, 640)
+    ri = lambda lo, hi, shape: torch.randint(lo, hi, shape, device=cuda, generator=g,
+                                             dtype=torch.int32)
+    R = ri(0, 5, (B, C, H, W)).to(torch.uint8)
+    nf = ri(0, F + 1, (K,))
+    nf[:2] = torch.tensor([0, F], dtype=torch.int32)
+    ay, ax = ri(0, H, (K,)), ri(0, W, (K,))
+    ay[K // 2:], ax[K // 2:] = ri(H - 24, H, (K - K // 2,)), ri(W - 24, W, (K - K // 2,))
+    args = (ri(0, C, (K, F)), ri(0, 193, (K, F)), ri(0, 193, (K, F)), nf, ay, ax)
+    if batched:
+        fr = ri(0, B, (K,))
+        got = CK.refine_scores(R, *args, window=24, frame_idx=fr)
+        want = CK.refine_scores_plain(R, *args, window=24, frame_idx=fr)
+    else:
+        got = CK.refine_scores(R[0], *args, window=24)
+        want = CK.refine_scores_plain(R[0], *args, window=24)
+    assert torch.equal(got, want) and int(got.max()) > 0
+
+
+@pytest.mark.requires_cuda
 def test_batched_matcher_kernels_equal_plain(cuda):
     td = Detector.read(BANK)
     cid = td.class_ids[0]
@@ -99,10 +113,43 @@ def test_batched_matcher_kernels_equal_plain(cuda):
     kw = dict(top_k=64, prune=True, prune_mode="pooled", fine_g=4,
               group_bound=16, pool_coarse=56 * B, pool_fine=36 * B,
               pool_group=B * 15 * 20, device=cuda)
-    rgbs, deps = _crops()
+    rgbs, deps = S.golden_crops()
     got = BatchedMatcher(td, cid, 70.0, B, **kw).match_batch(rgbs, deps)
     want = BatchedMatcher(td, cid, 70.0, B, plain=True, **kw).match_batch(rgbs, deps)
     for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+def test_k5_chain_and_two_object_kernels_equal_plain(cuda):
+    """The exhaustive mode's candidates through the K5 refiner, and the
+    two-object matcher (the bank under two class ids), kernels against
+    plain; K5 launched."""
+    td = Detector.read(BANK)
+    cid = td.class_ids[0]
+    bank = td.bank(cid)
+    rgbs, deps = S.golden_crops()
+    B = rgbs.shape[0]
+    m = BatchedMatcher(td, cid, 70.0, B, top_k=64, device=cuda)
+    R0, cands, _ = m.candidates(rgbs, deps)
+    _build.reset_launch_counts()
+    got = TM.refine_candidates_pallas_batched(R0, m.feats0, cands, m.T1, 70.0, m.E0,
+                                              fine_T=m.T0)
+    assert _build.launch_counts["refine_scores"] == 1
+    want = TM.refine_candidates_pallas_batched(R0, m.feats0, cands, m.T1, 70.0, m.E0,
+                                               fine_T=m.T0, plain=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    td.attach_bank(TemplateBank("second", bank.params, bank.templates))
+    kw = dict(top_k=64, prune_mode="pooled", pool_coarse=56 * B, pool_fine=36 * B,
+              device=cuda)
+    got = MultiClassBatchedMatcher(td, [cid, "second"], [70.0, 72.0], B, **kw)
+    want = MultiClassBatchedMatcher(td, [cid, "second"], [70.0, 72.0], B, plain=True, **kw)
+    g, w = got.match_batch(rgbs, deps), want.match_batch(rgbs, deps)
+    for c in (cid, "second"):
+        for a, b in zip(g[c], w[c]):
+            assert torch.equal(a, b)
+    for a, b in zip(got.last_pool, want.last_pool):
         assert torch.equal(a, b)
 
 

@@ -27,26 +27,7 @@ from linemod_pose_estimation_tpu_torch.utils import scenes as S
 
 BANK = "data/boxNew_rgbd_templates.yml.gz"
 GOLDEN = "tests/data/torch_port_golden.npz"
-# Templates that match the cropped scenes at threshold 70, then a stride
-# sample of the rest of the bank (64 in all).
-MATCHING = [25, 42, 158, 175, 179, 192, 196, 308, 329, 346, 350, 363, 908,
-            1501, 2540]
-SUBSET = MATCHING + [i for i in range(0, 2652, 53) if i not in MATCHING][:49]
 
-
-def _crops(frames=(4, 3)):
-    """240x320 crops of golden-batch frames centred on their objects."""
-    rgbs, deps, truths = S.golden_batch(0)
-    views = S.load_views()
-    out_r, out_d = [], []
-    for b in frames:
-        v, x, y = truths[b][0]
-        w, h = views[v][3][2:]
-        cy = int(np.clip(y + h // 2 - 120, 0, 240))
-        cx = int(np.clip(x + w // 2 - 160, 0, 320))
-        out_r.append(rgbs[b, cy:cy + 240, cx:cx + 320])
-        out_d.append(deps[b, cy:cy + 240, cx:cx + 320])
-    return np.stack(out_r), np.stack(out_d)
 
 
 def test_batched_matcher_equals_reference():
@@ -54,13 +35,13 @@ def test_batched_matcher_equals_reference():
     cid = td.class_ids[0]
     jb, tb = jd.bank(cid), td.bank(cid)
     jsub, tsub = JDetector(jb.params), Detector(tb.params)
-    jsub.attach_bank(JBank(cid, jb.params, [jb.templates[i] for i in SUBSET]))
-    tsub.attach_bank(TemplateBank(cid, tb.params, [tb.templates[i] for i in SUBSET]))
+    jsub.attach_bank(JBank(cid, jb.params, [jb.templates[i] for i in S.CROP_BANK_SUBSET]))
+    tsub.attach_bank(TemplateBank(cid, tb.params, [tb.templates[i] for i in S.CROP_BANK_SUBSET]))
     B = 2
     kw = dict(top_k=64, prune=True, prune_mode="pooled", fine_g=4,
               group_bound=16, pool_coarse=56 * B, pool_fine=36 * B,
               pool_group=B * 15 * 20, sel_row_cap=128)
-    rgbs, deps = _crops()
+    rgbs, deps = S.golden_crops()
     jm = JMatcher(jsub, cid, 70.0, B, **kw)
     want = jm.match_batch(jnp.asarray(rgbs), jnp.asarray(deps))
     tm = BatchedMatcher(tsub, cid, 70.0, B, **kw)

@@ -1,11 +1,24 @@
-"""Where the port's main-path batch spends its time, on one NVIDIA GPU.
+"""Where a batched path of the port spends its time, on one NVIDIA GPU.
 
-    python tools/profile_torch_slice.py [--batch 32] [--iters 3] [--top 25]
+    python tools/profile_torch_slice.py [--path pooled|k5|two_object]
+                                        [--batch 32] [--iters 3] [--top 25]
 
-Runs the chip_smoke.py tiled-bank batch (bin-picking scenes over the RGB-D
-bank tiled to 10,624 templates, slice_settings) through the kernel path:
-first host-clock stage times bracketed by torch.cuda.synchronize()
-(preprocess / pooled matching / walk), then a torch.profiler trace of
+Runs chip_smoke.py's B=32 bin-picking batch over the RGB-D bank tiled to
+10,624 templates through the kernel path of one of:
+
+- `pooled` (phase 2b): BatchedMatcher(**slice_settings(B)) — candidates
+  from the pooled matcher, then the walk;
+- `k5` (phase 7): BatchedMatcher(prune=False, top_k=128) — candidates
+  from the exhaustive GEMM and select, then the K5 window refiner
+  (refine_candidates_pallas_batched);
+- `two_object` (phase 8): MultiClassBatchedMatcher(prune_mode="pooled")
+  over the bank under two class ids (2 x 10,624 templates), thresholds
+  92 / 94, pools 56 B / 36 B — the merged pooled pass, then merge, walk
+  and split; as in phase 8 the batch's last four frames are the frames of
+  tests/data/torch_cascade_golden.npz.
+
+First host-clock stage times bracketed by torch.cuda.synchronize()
+(preprocess / candidates / refine), then a torch.profiler trace of
 `--iters` whole batches: self device time by aten op and by kernel, and
 the device busy share (traced kernel time over the untraced batch time).
 Prints JSON lines; needs CUDA.
@@ -24,10 +37,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", choices=("pooled", "k5", "two_object"), default="pooled")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -36,7 +51,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from linemod_pose_estimation_tpu_torch.models.detector import Detector
     from linemod_pose_estimation_tpu_torch.models.serving import (
-        BatchedMatcher, slice_settings)
+        BatchedMatcher, MultiClassBatchedMatcher, slice_settings)
+    from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
     from linemod_pose_estimation_tpu_torch.ops import match as M
     from linemod_pose_estimation_tpu_torch.utils import scenes as S
 
@@ -45,38 +61,60 @@ def main() -> int:
     det = Detector.read(os.path.join(REPO, "data", "boxNew_rgbd_templates.yml.gz"))
     cid = det.class_ids[0]
     bank = det.bank(cid)
-    det.attach_bank(bank.tile(-(-10240 // bank.num_templates), 10624))
-    m = BatchedMatcher(det, cid, 91.0, B, device=dev, **slice_settings(B))
+    reps = -(-10240 // bank.num_templates)
+    det.attach_bank(bank.tile(reps, 10624))
     rgbs_np, deps_np, _ = S.bin_picking_batch(B, seed=3)
     rgbs = torch.from_numpy(rgbs_np).to(dev)
     deps = torch.from_numpy(deps_np).to(dev)
-    m.match_batch(rgbs, deps)  # warm-up
+    if args.path == "pooled":
+        m = BatchedMatcher(det, cid, 91.0, B, device=dev, **slice_settings(B))
+        candidates = lambda: m.candidates(rgbs, deps)
+        refine = lambda c: m.refine(*c)
+    elif args.path == "k5":
+        m = BatchedMatcher(det, cid, 91.0, B, top_k=128, device=dev)
+        candidates = lambda: m.candidates(rgbs, deps)
+        refine = lambda c: M.refine_candidates_pallas_batched(
+            c[0], m.feats0, c[1], m.T1, 91.0, m.E0, fine_T=m.T0)
+    else:
+        with np.load(os.path.join(REPO, "tests", "data", "torch_cascade_golden.npz")) as z:
+            g_rgbs, g_deps = (torch.from_numpy(z[k]).to(dev) for k in ("rgb", "depth_mm"))
+        rgbs = torch.cat([rgbs[:B - len(g_rgbs)], g_rgbs])
+        deps = torch.cat([deps[:B - len(g_deps)], g_deps])
+        second = TemplateBank(cid + "_second", bank.params, bank.templates)
+        det.attach_bank(second.tile(reps, 10624))
+        m = MultiClassBatchedMatcher(det, [cid, second.class_id], [92.0, 94.0], B,
+                                     top_k=128, prune_mode="pooled",
+                                     pool_coarse=56 * B, pool_fine=36 * B, device=dev)
+        candidates = lambda: m.candidates(rgbs, deps)
+        refine = lambda c: m.refine(*c)
+    run = lambda: refine(candidates())
+    run()  # warm-up
 
     def stages():
         out = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        R0, R1 = M.preprocess_frames_batched(rgbs, deps, m.T0, m.T1, True, m.weak)
+        M.preprocess_frames_batched(rgbs, deps, m.T0, m.T1, True, m.weak)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        R0c, cands, n_valid = m.candidates(rgbs, deps)  # includes a preprocess
+        c = candidates()  # includes a preprocess
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        m.refine(R0c, cands, n_valid)
+        refine(c)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         out["preprocess_ms"] = (t1 - t0) * 1e3
-        out["pooled_match_ms"] = (t2 - t1 - (t1 - t0)) * 1e3
-        out["walk_ms"] = (t3 - t2) * 1e3
+        out["candidates_ms"] = (t2 - t1 - (t1 - t0)) * 1e3
+        out["refine_ms"] = (t3 - t2) * 1e3
         return out
 
     for _ in range(args.iters):
-        print(json.dumps({"stages": stages()}), flush=True)
+        print(json.dumps({"path": args.path, "stages": stages()}), flush=True)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.iters):
-        m.match_batch(rgbs, deps)
+        run()
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3 / args.iters
 
@@ -84,7 +122,7 @@ def main() -> int:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.iters):
-            m.match_batch(rgbs, deps)
+            run()
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -104,7 +142,7 @@ def main() -> int:
     # The profiler slows the host side many times over, so the busy share
     # divides traced device time by the untraced batch time.
     print(json.dumps({"trace": {
-        "batches": args.iters, "batch_ms_untraced": batch_ms,
+        "path": args.path, "batches": args.iters, "batch_ms_untraced": batch_ms,
         "device_ms_per_batch": busy_ms / args.iters,
         "device_busy_share": busy_ms / args.iters / batch_ms,
         "card": torch.cuda.get_device_name(0)}}), flush=True)
