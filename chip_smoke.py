@@ -11,7 +11,11 @@ from csrc/.  Phases, one JSON line each:
   0. card label (nvidia-smi) and the kernel build;
   1. K1 and K2 against their plain PyTorch versions on the card, bitwise,
      at the main path's shapes (B=32 at 480x640 and 240x320), with CUDA
-     event times of both;
+     event times of both and each launch's bound (ops/roofline.py); then
+     on odd shapes (widths off the kernels' tiles and off 4, 1- and 7-row
+     frames, 1x1 and 3x3 frames; K1 on u8 and f32, K2 at T=5 and 8 into a
+     channel slice of a wider stack whose other channels keep their
+     bytes);
   2a. the untiled 2652-template bank on the 8-frame golden batch: Matches,
       n_valid, PooledStats and R0/R1 hashes equal the JAX reference's
       (tests/data/torch_port_golden.npz);
@@ -60,7 +64,10 @@ from csrc/.  Phases, one JSON line each:
      the merged batch time and the split time (the two single-class
      batches, as the reference bench times its alternator).
 
-Then a kernels summary line, the card line, and last
+Then a kernels summary line (per kernel: launches on its path, the
+summed time, plain time and bound of those launches at their shapes,
+what bounds it, the share of the bound, and library_ms null: no single
+PyTorch call computes any of these functions), the card line, and last
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing the last line.  It needs CUDA: without a
 card it exits 2 before doing anything.
@@ -132,6 +139,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def kernel_times(fn, kernel: str, reps: int = 20) -> dict:
+    """The time of one launch of fn()'s kernel, two ways, after a warm-up:
+    `ms`, the kernel's own device time (torch.profiler's CUDA time of the
+    kernels whose name holds `kernel`, over `reps` launches; CUDA events
+    if the trace holds no device time), and `call_ms`, the CUDA-event time
+    per call of `reps` calls back to back, which for a kernel shorter than
+    the wrapper's host work is the host's launch rate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call_ms = cuda_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return dict(ms=dev_us / 1e3 / reps if dev_us > 0 else call_ms, call_ms=call_ms,
+                ms_from="profiler" if dev_us > 0 else "cuda_events")
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
@@ -168,6 +196,7 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
     from linemod_pose_estimation_tpu_torch.ops import features as F
     from linemod_pose_estimation_tpu_torch.ops import match as M
     from linemod_pose_estimation_tpu_torch.ops import raster as RA
+    from linemod_pose_estimation_tpu_torch.ops import roofline as RL
     from linemod_pose_estimation_tpu_torch.utils import pointcloud as TP
     from linemod_pose_estimation_tpu_torch.utils import scenes as S
 
@@ -205,8 +234,9 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
                                             triangles=int(tris.shape[0]))
         if name != "offscreen":
             perf["raster_zbuffer"][name].update(
-                ms=cuda_ms(lambda: RA.raster_zbuffer(coefs, w, h), 20),
-                plain_ms=cuda_ms(lambda: RA.raster_zbuffer_plain(coefs, w, h), 3))
+                **kernel_times(lambda: RA.raster_zbuffer(coefs, w, h), "raster_zbuffer_kernel"),
+                plain_ms=cuda_ms(lambda: RA.raster_zbuffer_plain(coefs, w, h), 3),
+                bound=raster_bound(coefs, w, h)._asdict())
     emit("raster_vs_plain", K4=perf["raster_zbuffer"])
 
     # -- phase 5: K2b, the single-frame preprocess, kernels vs plain ---------
@@ -219,15 +249,19 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
         for fname, a, b in zip(got._fields, got, ref):
             require(torch.equal(a, b), f"K2b preprocess_frame {fname} "
                     f"(use_depth={use_depth}) differs from plain")
-    q0 = CP.quantize_color_gradient(rgb0[None], 10.0)
-    q1 = F.quantize_depth_normal(dep0[None])[:, ::2, ::2].contiguous()
-    for name, q, T in (("grad_T5_480x640", q0, 5), ("norm_T8_240x320", q1, 8)):
+    g0 = CP.quantize_color_gradient(rgb0[None], 10.0)
+    g1 = CP.quantize_color_gradient(torch.stack(
+        [F.pyr_down(rgb0[None, ..., c].float()) for c in range(3)], -1).contiguous(), 10.0)
+    n0 = F.quantize_depth_normal(dep0[None])
+    for name, q, T in (("grad_T5_480x640", g0, 5), ("grad_T8_240x320", g1, 8),
+                       ("norm_T5_480x640", n0, 5),
+                       ("norm_T8_240x320", n0[:, ::2, ::2].contiguous(), 8)):
         err = max_abs_err(CK.spread_response(q, T), CK.spread_response_plain(q, T))
         require(err == 0, f"K2b {name} differs from its plain version")
         perf["spread_response_b1"][name] = dict(
-            ms=cuda_ms(lambda: CK.spread_response(q, T), 20),
+            **kernel_times(lambda: CK.spread_response(q, T), "spread_response_kernel"),
             plain_ms=cuda_ms(lambda: CK.spread_response_plain(q, T), 3),
-            max_abs_err=err)
+            max_abs_err=err, bound=RL.spread_response(*q.shape, T)._asdict())
     emit("single_frame_preprocess_vs_plain", equal=True, K2b=perf["spread_response_b1"])
 
     # -- phase 6: the cascade golden at full width ---------------------------
@@ -317,7 +351,111 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
             "the limit does not see reduced precision")
     emit("tf32_control", worst_deg=worst[0], worst_mm=worst[1],
          pose_tolerance_deg_mm=POSE_TOL, outside=True)
-    return launches6
+    return per_detect
+
+
+def odd_shapes(dev: torch.device) -> list[str]:
+    """K1 (u8 and f32 input) and K2 (T=5 and 8) against their plain
+    versions, bitwise, on shapes off the kernels' tiles: widths that are
+    not a multiple of K1's 92 output columns nor of K2's 4 pixels, 1- and
+    7-row frames, 1x1 and 3x3 frames.  Each K2 call writes into channels [5, 13)
+    of a 19-channel stack, whose other channels must keep their bytes."""
+    from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
+    from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    shapes = ((1, 7), (7, 13), (3, 3), (1, 1), (37, 131), (65, 249), (480, 643))
+    for H, W in shapes:
+        x = torch.randint(0, 256, (2, H, W, 3), generator=gen, device=dev, dtype=torch.uint8)
+        yy = torch.arange(H, device=dev)[:, None].float()
+        xx = torch.arange(W, device=dev)[None, :].float()
+        x[1, ..., 0] = ((torch.sin(yy / 3.0) + torch.cos(xx / 4.0)) * 60 + 128).to(torch.uint8)
+        for kind, xi in (("u8", x), ("f32", x.float())):
+            err = max_abs_err(CP.quantize_color_gradient(xi, 10.0),
+                              CP.quantize_color_gradient_plain(xi, 10.0))
+            require(err == 0, f"K1 {H}x{W} {kind} differs from its plain version")
+        q = ((1 << torch.randint(0, 8, (2, H, W), generator=gen, device=dev))
+             * (torch.rand((2, H, W), generator=gen, device=dev) < 0.3)).to(torch.uint8)
+        for T in (5, 8):
+            stack = torch.full((2, 19, H, W), 0xAB, dtype=torch.uint8, device=dev)
+            CK.spread_response(q, T, out=stack, channel=5)
+            require(torch.equal(stack[:, 5:13], CK.spread_response_plain(q, T)),
+                    f"K2 {H}x{W} T={T} differs from its plain version")
+            require(bool((stack[:, :5] == 0xAB).all()) and bool((stack[:, 13:] == 0xAB).all()),
+                    f"K2 {H}x{W} T={T} wrote outside its channel slice")
+    return [f"{H}x{W}" for H, W in shapes]
+
+
+def distinct_reads(shape, reads) -> int:
+    """Distinct bytes of a (B, C, H, W) u8 stack that a kernel reads:
+    `reads` yields (plane (N,) = b * C + c, rows (N, n), cols (N, n)), each
+    the n x n grid rows x cols of one plane; reads past the frame (zero by
+    definition) do not count."""
+    B, C, H, W = shape
+    seen = None
+    for plane, ys, xs in reads:
+        if seen is None:
+            seen = torch.zeros(B * C * H * W, dtype=torch.bool, device=plane.device)
+        ok = ((ys >= 0) & (ys < H))[:, :, None] & ((xs >= 0) & (xs < W))[:, None, :]
+        idx = ((plane.long()[:, None, None] * H + ys.long().clamp(0, H - 1)[:, :, None]) * W
+               + xs.long().clamp(0, W - 1)[:, None, :])
+        seen[idx[ok]] = True
+    return 0 if seen is None else int(seen.sum())
+
+
+def walk_bound(R0, plan, T: int):
+    """K3's bound on one walk plan (ops/roofline.py)."""
+    from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+    B, C = R0.shape[:2]
+    K, Fmax = plan.oris.shape[1:]
+    slot_ok = torch.arange(K, device=R0.device)[None, :] < plan.n_valid[:, None]
+    q = torch.arange(16, device=R0.device)
+    frame = torch.arange(B, device=R0.device)[:, None].expand(B, K)
+
+    def reads():
+        for f in range(Fmax):
+            sel = slot_ok & plan.live[..., f]
+            yield ((frame * C + plan.oris[..., f])[sel],
+                   ((plan.gy0[..., None] + q) * T + plan.dys[..., f, None])[sel],
+                   ((plan.gx0[..., None] + q) * T + plan.dxs[..., f, None])[sel])
+
+    live_pairs = int((slot_ok[..., None] & plan.live).sum())
+    return RL.walk_scores(B, K, Fmax, live_pairs, distinct_reads(R0.shape, reads()))
+
+
+def window_bound(R0, plan, window: int):
+    """K5's bound on one window plan (ops/roofline.py)."""
+    from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+    C = R0.shape[1]
+    K, Fmax = plan.oris.shape
+    q = torch.arange(window, device=R0.device)
+
+    def reads():
+        for f in range(Fmax):
+            sel = f < plan.nf
+            yield ((plan.frame_idx * C + plan.oris[:, f])[sel],
+                   (plan.anchor_y[:, None] + plan.dys[:, f, None] + q)[sel],
+                   (plan.anchor_x[:, None] + plan.dxs[:, f, None] + q)[sel])
+
+    return RL.refine_scores(K, Fmax, window, int(plan.nf.clamp(max=Fmax).sum()),
+                            distinct_reads(R0.shape, reads()))
+
+
+def raster_bound(coefs, W: int, H: int):
+    """K4's bound (ops/roofline.py): the (pixel, live triangle) pairs whose
+    pixel centre lies in the triangle's grown bounding box."""
+    from linemod_pose_estimation_tpu_torch.ops import raster as RA
+    from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+
+    col = lambda name: coefs[..., RA.COEFS.index(name)]
+    nx = (torch.floor(col("xmax") - 0.5).clamp(max=W - 1)
+          - torch.ceil(col("xmin") - 0.5).clamp(min=0) + 1).clamp(min=0)
+    ny = (torch.floor(col("ymax") - 0.5).clamp(max=H - 1)
+          - torch.ceil(col("ymin") - 0.5).clamp(min=0) + 1).clamp(min=0)
+    n = nx * ny
+    pairs = int(torch.where((col("live") > 0.5) & torch.isfinite(n), n, 0).sum())
+    P, Tn, ncoef = coefs.shape
+    return RL.raster_zbuffer(P, Tn, H, W, ncoef, pairs)
 
 
 def timed(fn, reps: int = 1) -> list[float]:
@@ -394,8 +532,9 @@ def k5_phase(dev, det, bank, rgbs, deps, perf: dict) -> dict:
             features=int(pl.nf.sum()))
         if pl is plan:
             perf["refine_scores"][name].update(
-                ms=cuda_ms(lambda: run(CK.refine_scores), 20),
-                plain_ms=cuda_ms(lambda: run(CK.refine_scores_plain), 3))
+                **kernel_times(lambda: run(CK.refine_scores), "refine_scores_kernel"),
+                plain_ms=cuda_ms(lambda: run(CK.refine_scores_plain), 3),
+                bound=window_bound(R0, pl, 24)._asdict())
     for b in range(B_MAIN):
         cb = M.CoarseMatches(*(a[b] for a in cands))
         want = M.Matches(*(a[b] for a in m5))
@@ -535,6 +674,7 @@ def main() -> int:
     from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
     from linemod_pose_estimation_tpu_torch.ops import features as F
     from linemod_pose_estimation_tpu_torch.ops import match as M
+    from linemod_pose_estimation_tpu_torch.ops import roofline as RL
     from linemod_pose_estimation_tpu_torch.utils import scenes as S
 
     dev = torch.device("cuda")
@@ -565,8 +705,12 @@ def main() -> int:
                                          set_frac=float((q > 0).float().mean()))
         if not name.startswith("noise"):  # time the scene batch
             perf["quantize_cg"][name].update(
-                ms=cuda_ms(lambda: CP.quantize_color_gradient(x, 10.0), 20),
+                **kernel_times(lambda: CP.quantize_color_gradient(x, 10.0),
+                                 "quantize_cg_kernel"),
                 plain_ms=cuda_ms(lambda: CP.quantize_color_gradient_plain(x, 10.0), 3))
+    for name, x in (("level0_u8_480x640", rgbs), ("level1_f32_240x320", rgb1)):
+        perf["quantize_cg"][name]["bound"] = RL.quantize_cg(*x.shape[:3],
+                                                            x.element_size())._asdict()
     q0 = CP.quantize_color_gradient(rgbs, 10.0)
     q1 = CP.quantize_color_gradient(rgb1, 10.0)
     n0 = F.quantize_depth_normal(deps)
@@ -577,9 +721,12 @@ def main() -> int:
         err = max_abs_err(got, ref)
         require(err == 0, f"K2 {name} differs from its plain version")
         perf["spread_response"][name] = dict(
-            ms=cuda_ms(lambda: CK.spread_response(q, T), 20),
+            **kernel_times(lambda: CK.spread_response(q, T), "spread_response_kernel"),
             plain_ms=cuda_ms(lambda: CK.spread_response_plain(q, T), 3),
-            max_abs_err=err)
+            max_abs_err=err, bound=RL.spread_response(*q.shape, T)._asdict())
+    odd = odd_shapes(dev)
+    perf["quantize_cg"]["odd_shapes"] = dict(max_abs_err=0, shapes=odd)
+    perf["spread_response"]["odd_shapes"] = dict(max_abs_err=0, shapes=odd)
     emit("kernels_vs_plain", K1=perf["quantize_cg"], K2=perf["spread_response"])
 
     # -- phase 2a: untiled bank, golden batch vs the JAX reference -----------
@@ -685,30 +832,42 @@ def main() -> int:
         err = max_abs_err(got, ref)
         require(err == 0, f"K3 {name} differs from its plain version")
         perf["walk_scores"][name] = dict(
-            ms=cuda_ms(lambda: CK.walk_scores(R0, *ops, main_m.T0), 20),
+            **kernel_times(lambda: CK.walk_scores(R0, *ops, main_m.T0), "walk_scores_kernel"),
             plain_ms=cuda_ms(lambda: CK.walk_scores_plain(R0, *ops, main_m.T0), 3),
-            max_abs_err=err, slots_walked=int(plan.n_valid.sum()))
+            max_abs_err=err, slots_walked=int(plan.n_valid.sum()),
+            bound=walk_bound(R0, plan, main_m.T0)._asdict())
     emit("walk_vs_plain", K3=perf["walk_scores"])
 
-    launches6 = cascade_phases(dev, perf)
+    per_detect = cascade_phases(dev, perf)
     del main_m, plain_m, fb
     launches7 = k5_phase(dev, det, bank, rgbs, deps, perf)
     two_object_phase(dev, bank, rgbs, deps)
 
     # -- summary -------------------------------------------------------------
+    # launches: of one B=32 pooled batch (phase 2b) for K1-K3, of one detect
+    # (phase 6) for K2b and K4, of one K5 chain (phase 7) for K5.  ms, plain
+    # and bound: summed over the shapes of those launches.
+    launches_of = {"spread_response_b1": (per_detect["spread_response"], "one detect"),
+                   "raster_zbuffer": (per_detect["raster_zbuffer"], "one detect"),
+                   "refine_scores": (launches7["refine_scores"], "one K5 chain")}
     summary = []
     for key, (name, src, replaces) in KERNELS.items():
         shapes = perf[key]
         main_shapes = [s for s, v in shapes.items()
                        if "ms" in v and s not in ("all_slots", "frame_640x480")]
+        n, per = launches_of[key] if key in launches_of else (
+            launches[key], "one B=32 pooled batch")
+        ms = sum(shapes[s]["ms"] for s in main_shapes)
+        bound_ms = sum(shapes[s]["bound"]["ms"] for s in main_shapes)
+        by = max(main_shapes, key=lambda s: shapes[s]["bound"]["ms"])
         summary.append(dict(
             name=f"{name} {key}", route="cuda", source=src, replaces=replaces,
-            launches=(launches6["spread_response"] if key == "spread_response_b1"
-                      else launches6[key] if key == "raster_zbuffer"
-                      else launches7[key] if key == "refine_scores" else launches[key]),
+            launches=n, launches_per=per,
             max_abs_err=max(v["max_abs_err"] for v in shapes.values()),
-            ms=sum(shapes[s]["ms"] for s in main_shapes),
-            plain_ms=sum(shapes[s]["plain_ms"] for s in main_shapes),
+            ms=ms, plain_ms=sum(shapes[s]["plain_ms"] for s in main_shapes),
+            bound_ms=bound_ms, bound_by=shapes[by]["bound"]["by"],
+            share_of_bound=bound_ms / ms, library_ms=None,
+            library_note="no single PyTorch call computes it",
             shapes=shapes))
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

@@ -11,14 +11,15 @@ import torch
 
 from .ops.match import (BankWeights, CoarseMatches, LevelFeatures, Matches,
                         MatmulWeight)
+from .utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def _t(a, dtype, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return torch.tensor(np.asarray(a), dtype=dtype, device=resolve_device(device))
 
 
 def level_features_from_numpy(offsets, oris, live, count, size,
-                              device="cpu") -> LevelFeatures:
+                              device=DEFAULT_DEVICE) -> LevelFeatures:
     """The reference's LevelFeatures fields -> the port's LevelFeatures."""
     return LevelFeatures(
         offsets=_t(offsets, torch.int32, device), oris=_t(oris, torch.int32, device),
@@ -28,7 +29,7 @@ def level_features_from_numpy(offsets, oris, live, count, size,
 
 
 def bank_from_numpy(W_gemm, W_cell, W_fine, W_group=None, group_counts=None,
-                    device="cpu") -> BankWeights:
+                    device=DEFAULT_DEVICE) -> BankWeights:
     """The reference's built weights — W_gemm (K, N), W_cell (N, bins),
     W_fine (N, fine bins), W_group (Ng, bins), group_counts (Ng, group) —
     -> the port's BankWeights (zero-padded int8 GEMM operands)."""
@@ -71,7 +72,7 @@ def templates_from_reference(templates) -> list:
     ]
 
 
-def detector_from_reference(bank, device="cpu"):
+def detector_from_reference(bank, device=DEFAULT_DEVICE):
     """A reference TemplateBank -> a port Detector holding the same
     templates (its arrays and weights are rebuilt by the port)."""
     from .models.detector import Detector
@@ -101,12 +102,12 @@ def globals_from_reference(g):
     return RendererGlobals(**vars(g))
 
 
-def triangles_from_numpy(tris, device="cpu") -> torch.Tensor:
+def triangles_from_numpy(tris, device=DEFAULT_DEVICE) -> torch.Tensor:
     """Padded (Tn, 3, 3) triangles (the reference's device mesh) -> f32."""
     return _t(tris, torch.float32, device)
 
 
-def matches_from_numpy(template_id, x, y, similarity, valid, device="cpu") -> Matches:
+def matches_from_numpy(template_id, x, y, similarity, valid, device=DEFAULT_DEVICE) -> Matches:
     """Matches fields as numpy -> the port's Matches."""
     return Matches(_t(template_id, torch.int32, device), _t(x, torch.int32, device),
                    _t(y, torch.int32, device), _t(similarity, torch.float32, device),
@@ -114,7 +115,7 @@ def matches_from_numpy(template_id, x, y, similarity, valid, device="cpu") -> Ma
 
 
 def coarse_matches_from_numpy(template_id, cell_y, cell_x, similarity, valid,
-                              device="cpu") -> CoarseMatches:
+                              device=DEFAULT_DEVICE) -> CoarseMatches:
     """CoarseMatches fields as numpy -> the port's CoarseMatches."""
     return CoarseMatches(_t(template_id, torch.int32, device),
                          _t(cell_y, torch.int32, device), _t(cell_x, torch.int32, device),

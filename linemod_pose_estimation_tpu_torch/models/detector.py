@@ -9,7 +9,8 @@ top-k selection, and cv::linemod's exact walk (K3 at B=1).
 `make_matcher_fn` is the reference's serving fn: the same engine with
 the position-major GEMM and select.  Frame batches go through
 ``models.serving.BatchedMatcher``.  `device` places the bank operands
-and the computation.
+and the computation (default the card; `device="cpu"` runs the plain
+PyTorch versions on the host).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import match as M
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .templates import DetectorParams, TemplateBank
 
 
@@ -47,10 +49,10 @@ class MatchResult:
 
 class Detector:
     def __init__(self, params: DetectorParams | None = None, f_cap: int = 64,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         self.params = params or DetectorParams()
         self.f_cap = f_cap
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._banks: dict[str, TemplateBank] = {}
         self._operands: dict[str, tuple] = {}
 
@@ -66,7 +68,7 @@ class Detector:
         return self._banks[class_id]
 
     @classmethod
-    def read(cls, path: str, f_cap: int = 64, device="cpu") -> "Detector":
+    def read(cls, path: str, f_cap: int = 64, device=DEFAULT_DEVICE) -> "Detector":
         bank = TemplateBank.read_templates_yaml(path, f_cap=f_cap)
         det = cls(bank.params, f_cap=f_cap, device=device)
         det.attach_bank(bank)

@@ -21,6 +21,7 @@ import torch
 
 from ..ops import match as M
 from ..utils import geometry as geo
+from ..utils.device import DEFAULT_DEVICE
 from . import cascade as CC
 from .detector import Detector, to_device
 from .renderer import _pad_triangles
@@ -137,7 +138,7 @@ class DetectionPipeline:
     def from_files(cls, templates_yml: str, params_yml: str, stl_path,
                    cascade_params: CC.CascadeParams | None = None,
                    render_size: tuple[int, int] | None = None,
-                   device="cpu") -> "DetectionPipeline":
+                   device=DEFAULT_DEVICE) -> "DetectionPipeline":
         """Cold-start from serialized banks and a mesh (an STL path or a
         ``utils.stl.Mesh``)."""
         det = Detector.read(templates_yml, device=device)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops import raster
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class RenderOutput(NamedTuple):
@@ -83,13 +84,13 @@ class Renderer:
 
     def __init__(self, mesh_or_path, width: int, height: int, fx: float,
                  fy: float, near: float = 0.1, far: float = 1000.0,
-                 chunk: int = raster.CHUNK, device="cpu"):
+                 chunk: int = raster.CHUNK, device=DEFAULT_DEVICE):
         from ..utils.stl import load_stl
 
         mesh = load_stl(mesh_or_path) if isinstance(mesh_or_path, str) else mesh_or_path
         self.width, self.height = width, height
         self.near, self.far = near, far
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.K = torch.tensor([[fx, 0, width / 2.0], [0, fy, height / 2.0], [0, 0, 1]],
                               dtype=torch.float32, device=self.device)
         self.triangles = torch.from_numpy(

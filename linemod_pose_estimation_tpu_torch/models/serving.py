@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import match as M
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def slice_settings(batch: int, height: int = 480, width: int = 640,
@@ -83,7 +84,7 @@ class BatchedMatcher:
                  prune_mode: str = "positions", fine_g: int | None = 4,
                  pool_coarse: int | None = None, pool_fine: int | None = None,
                  sel_row_cap: int = 128, group_bound: int | None = None,
-                 pool_group: int | None = None, device="cpu",
+                 pool_group: int | None = None, device=DEFAULT_DEVICE,
                  plain: bool = False):
         if prune and prune_mode != "pooled":
             raise NotImplementedError(
@@ -93,7 +94,7 @@ class BatchedMatcher:
             raise ValueError("prune_mode='pooled' requires prune=True")
         p = detector.params
         bank = detector.bank(class_id)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.T0, self.T1 = p.t_pyramid
         self.prune = prune
         self.threshold = threshold
@@ -195,7 +196,7 @@ class MultiClassBatchedMatcher:
                  top_k: int = 256, fine_g: int | None = 4,
                  prune_mode: str = "positions",
                  pool_coarse: int | None = None, pool_fine: int | None = None,
-                 sel_row_cap: int = 128, device="cpu", plain: bool = False):
+                 sel_row_cap: int = 128, device=DEFAULT_DEVICE, plain: bool = False):
         if prune_mode != "pooled":
             raise NotImplementedError(
                 f"prune_mode={prune_mode!r} is not ported (ported: 'pooled')")
@@ -204,7 +205,7 @@ class MultiClassBatchedMatcher:
         if len(thresholds) != len(class_ids):
             raise ValueError("need one threshold per class")
         p = detector.params
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.class_ids = list(class_ids)
         self.thresholds = [float(t) for t in thresholds]
         self.T0, self.T1 = p.t_pyramid

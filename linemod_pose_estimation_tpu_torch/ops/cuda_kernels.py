@@ -19,28 +19,67 @@ from . import features as F
 WIN = 16  # OpenCV's fixed 16 x 16 local similarity map
 
 
-def spread_response_plain(quant: torch.Tensor, T: int) -> torch.Tensor:
-    """(B, H, W) u8 bitmasks -> (B, 8, H, W) u8 response maps."""
-    return F.response_maps(F.orientation_spread(quant, T))
+def spread_rows(B: int, H: int, W: int) -> int:
+    """Rows per K2 thread strip: 2 for a large batch (more strips keep more
+    stores in flight), 4 otherwise (fewer halo rows re-read); the faster
+    of 1-16 at each of the B=32 batch's two levels on an H100."""
+    return 2 if B * H * -(-W // 4) >= 1 << 20 else 4
 
 
-def spread_response(quant: torch.Tensor, T: int) -> torch.Tensor:
+def _response_out(quant: torch.Tensor, out: torch.Tensor | None, channel: int
+                  ) -> torch.Tensor:
+    """The (B, C, H, W) u8 stack that receives channels [channel, channel
+    + 8); a new (B, 8, H, W) one when `out` is None."""
+    B, H, W = quant.shape
+    if out is None:
+        if channel:
+            raise ValueError("channel needs out=")
+        return torch.empty((B, 8, H, W), dtype=torch.uint8, device=quant.device)
+    if (out.dim() != 4 or (out.shape[0], *out.shape[2:]) != (B, H, W)
+            or out.dtype != torch.uint8 or out.device != quant.device):
+        raise ValueError(f"out: expected a uint8 (B={B}, C, H={H}, W={W}) tensor on "
+                         f"{quant.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+    if not 0 <= channel <= out.shape[1] - 8:
+        raise ValueError(f"channel={channel}: out has {out.shape[1]} channels, needs 8 from it")
+    return out
+
+
+def spread_response_plain(quant: torch.Tensor, T: int, out: torch.Tensor | None = None,
+                          channel: int = 0) -> torch.Tensor:
+    """(B, H, W) u8 bitmasks -> (B, 8, H, W) u8 response maps, written
+    into channels [channel, channel + 8) of `out` (B, C, H, W) when given;
+    returns that channel slice."""
+    out = _response_out(quant, out, channel)
+    view = out[:, channel:channel + 8]
+    view.copy_(F.response_maps(F.orientation_spread(quant, T)))
+    return view
+
+
+def spread_response(quant: torch.Tensor, T: int, out: torch.Tensor | None = None,
+                    channel: int = 0) -> torch.Tensor:
     """T x T OR-spread over offsets [0, T) (zero past the frame edge),
     then the graded 4/3/2/1/0 response LUT: (B, H, W) u8 -> (B, 8, H, W)
-    u8, bit-identical to the plain version."""
+    u8, bit-identical to the plain version.  With `out` (B, C, H, W) u8,
+    the 8 planes go straight into its channels [channel, channel + 8) and
+    the other channels are left as they are; returns that channel slice.
+    The kernel takes T in [1, 8]."""
     if quant.device.type == "cpu":
-        return spread_response_plain(quant, T)
+        return spread_response_plain(quant, T, out, channel)
     if quant.dim() != 3:
         raise ValueError(f"quant: expected (B, H, W), got {tuple(quant.shape)}")
+    if not 1 <= T <= 8:
+        raise ValueError(f"T={T}: the kernel spreads over 1 to 8 pixels")
     _build.require(quant, "quant", torch.uint8)
+    out = _response_out(quant, out, channel)
+    _build.require(out, "out", torch.uint8)
     B, H, W = quant.shape
-    out = torch.empty((B, 8, H, W), dtype=torch.uint8, device=quant.device)
     lib = _build.library()
     err = lib.lpe_spread_response(quant.data_ptr(), out.data_ptr(), B, H, W, T,
+                                  out.shape[1], channel, spread_rows(B, H, W),
                                   *_build.device_and_stream(quant))
     _build.check(err, "spread_response")
     _build.launch_counts["spread_response"] += 1
-    return out
+    return out[:, channel:channel + 8]
 
 
 def walk_scores_plain(R0, oris, dys, dxs, live, gy0, gx0, n_valid, T: int

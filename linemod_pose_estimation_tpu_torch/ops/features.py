@@ -42,10 +42,9 @@ _PYR5 = (0.0625, 0.25, 0.375, 0.25, 0.0625)
 # Response by circular bin distance d in [0, 4]: score = 4 - d.
 RESPONSE_BY_DISTANCE = (4, 3, 2, 1, 0)
 
-_NORMAL_LUT_PATH = os.path.join(
-    os.path.dirname(__file__), "..", "..", "linemod_pose_estimation_tpu",
-    "ops", "normal_lut_calib.npz",
-)
+# The port's own copy of the reference's probed table (byte-equal to
+# linemod_pose_estimation_tpu/ops/normal_lut_calib.npz; a test holds it so).
+_NORMAL_LUT_PATH = os.path.join(os.path.dirname(__file__), "normal_lut_calib.npz")
 _NORMAL_G = 10
 
 
@@ -186,7 +185,7 @@ _NORMAL_LUT_CACHE: dict[torch.device, torch.Tensor] = {}
 
 def normal_lut(device) -> torch.Tensor:
     """The engine's (11, 21, 21) NORMAL_LUT (probed table, u8) flattened,
-    read from the reference package's data file by path."""
+    read from the port's copy of the table."""
     device = torch.device(device)
     if device not in _NORMAL_LUT_CACHE:
         with np.load(_NORMAL_LUT_PATH) as z:

@@ -1229,7 +1229,8 @@ def refine_candidates_pallas_batched(
 
 
 class FramePyramid(NamedTuple):
-    """Response maps per level per modality (None when depth is unused)."""
+    """Response maps per level per modality (None when depth is unused):
+    channel views of the stacks that preprocess_frames_batched returns."""
 
     grad_r0: torch.Tensor  # (..., 8, H, W) u8
     grad_r1: torch.Tensor  # (..., 8, H/2, W/2) u8
@@ -1237,16 +1238,7 @@ class FramePyramid(NamedTuple):
     norm_r1: torch.Tensor
 
 
-def stack_modalities(pyr: FramePyramid, use_depth: bool):
-    """(R0, R1) response stacks from a FramePyramid — channel-concatenated
-    (channel dim -3) when the DepthNormal modality is on."""
-    if use_depth:
-        return (torch.cat([pyr.grad_r0, pyr.norm_r0], dim=-3),
-                torch.cat([pyr.grad_r1, pyr.norm_r1], dim=-3))
-    return pyr.grad_r0, pyr.grad_r1
-
-
-def preprocess_pyramid_batched(
+def preprocess_frames_batched(
     rgbs: torch.Tensor,  # (B, H, W, 3) uint8
     depths_mm: torch.Tensor | None,  # (B, H, W) f32 or None
     T0: int = 5,
@@ -1254,17 +1246,19 @@ def preprocess_pyramid_batched(
     use_depth: bool = False,
     weak_threshold: float = 10.0,
     plain: bool = False,
-) -> FramePyramid:
-    """Batched preprocess -> per-modality response maps at both levels
-    ((B, 8, H, W) and (B, 8, H/2, W/2) u8; the norm fields are None when
-    `use_depth` is off).
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched preprocess -> channel-stacked (R0, R1) response tensors
+    ((B, C, H, W), (B, C, H/2, W/2) u8; C = 16 with DepthNormal, else 8:
+    ColorGradient at channels 0-7, DepthNormal at 8-15).
 
     K1 quantizes ColorGradient at both levels (the level-1 input is the
     integer-valued f32 pyrDown output) and K2 spreads + responds four
-    times per batch; `plain=True` takes the plain PyTorch versions on any
-    device (CPU tensors always do).  DepthNormal quantizes in plain
-    PyTorch; level 1 subsamples the level-0 quantized normals (the
-    engine's DepthNormalPyramid::pyrDown)."""
+    times per batch, writing each modality's 8 planes straight into its
+    channel slice of the stacks, so no concatenation pass follows.
+    `plain=True` takes the plain PyTorch versions on any device (CPU
+    tensors always do).  DepthNormal quantizes in plain PyTorch; level 1
+    subsamples the level-0 quantized normals (the engine's
+    DepthNormalPyramid::pyrDown)."""
     from . import cuda_kernels as CK
     from . import cuda_preprocess as CP
 
@@ -1278,20 +1272,24 @@ def preprocess_pyramid_batched(
     else:
         quant = lambda x: CP.quantize_color_gradient(x, weak_threshold)
         respond = CK.spread_response
-    g_r0 = respond(quant(rgbs), T0)
-    rgb1 = torch.stack(
-        [F.pyr_down(rgbs[..., c].to(torch.float32)) for c in range(3)], dim=-1
-    )
-    g_r1 = respond(quant(rgb1), T1)
-    n_r0 = n_r1 = None
+    B, H, W = rgbs.shape[:3]
+    C = 16 if use_depth else 8
+    R0 = torch.empty((B, C, H, W), dtype=torch.uint8, device=rgbs.device)
+    respond(quant(rgbs), T0, R0, 0)
+    chans = [F.pyr_down(rgbs[..., c].to(torch.float32)) for c in range(3)]
+    rgb1 = torch.empty((*chans[0].shape, 3), dtype=torch.float32, device=rgbs.device)
+    for c, ch in enumerate(chans):
+        rgb1[..., c] = ch
+    R1 = torch.empty((B, C, *rgb1.shape[1:3]), dtype=torch.uint8, device=rgbs.device)
+    respond(quant(rgb1), T1, R1, 0)
     if use_depth:
         n0 = F.quantize_depth_normal(depths_mm)
-        n_r0 = respond(n0, T0)
-        n_r1 = respond(n0[:, ::2, ::2].contiguous(), T1)
-    return FramePyramid(g_r0, g_r1, n_r0, n_r1)
+        respond(n0, T0, R0, 8)
+        respond(n0[:, ::2, ::2].contiguous(), T1, R1, 8)
+    return R0, R1
 
 
-def preprocess_frames_batched(
+def preprocess_pyramid_batched(
     rgbs: torch.Tensor,  # (B, H, W, 3) uint8
     depths_mm: torch.Tensor | None,  # (B, H, W) f32 or None
     T0: int = 5,
@@ -1299,13 +1297,16 @@ def preprocess_frames_batched(
     use_depth: bool = False,
     weak_threshold: float = 10.0,
     plain: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched preprocess -> channel-stacked (R0, R1) response tensors
-    ((B, C, H, W), (B, C, H/2, W/2); C = 16 with DepthNormal, else 8):
-    preprocess_pyramid_batched, stacked."""
-    pyr = preprocess_pyramid_batched(rgbs, depths_mm, T0, T1, use_depth,
-                                     weak_threshold, plain)
-    return stack_modalities(pyr, use_depth)
+) -> FramePyramid:
+    """Batched preprocess -> per-modality response maps at both levels
+    ((B, 8, H, W) and (B, 8, H/2, W/2) u8; the norm fields are None when
+    `use_depth` is off): channel views of preprocess_frames_batched's
+    stacks."""
+    R0, R1 = preprocess_frames_batched(rgbs, depths_mm, T0, T1, use_depth,
+                                       weak_threshold, plain)
+    if use_depth:
+        return FramePyramid(R0[:, :8], R1[:, :8], R0[:, 8:], R1[:, 8:])
+    return FramePyramid(R0, R1, None, None)
 
 
 def preprocess_frame(

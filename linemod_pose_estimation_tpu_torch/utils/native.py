@@ -1,9 +1,15 @@
 """ctypes bindings for the native C++ bank loader (native/ directory).
 
-`native/bank_loader.cpp` parses the OpenCV-YAML bank files and is built on
-first use with `make -C native` (g++).  This is the port's only bank
-reader: the PyYAML route is not ported, so a missing toolchain is an error
-at load time rather than a silent fallback.
+`native/bank_loader.cpp` parses the OpenCV-YAML bank files.  The port
+compiles it on first use with g++ into its own library under
+`build/native/` at the repository root (git-ignored), never into
+`native/build/`: `make -C native` writes its output in place, so a process
+that loads that path while another is still linking it reads a truncated
+file ("file too short").  Here each process compiles to a file of its own
+and publishes it with an atomic rename, so concurrent loaders (pytest
+workers, say) see either no library or a whole one.  This is the port's
+only bank reader: the PyYAML route is not ported, so a missing toolchain
+is an error at load time rather than a silent fallback.
 """
 
 from __future__ import annotations
@@ -14,11 +20,27 @@ import subprocess
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "build", "liblpe_native.so")
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_SOURCE = os.path.join(_REPO, "native", "bank_loader.cpp")
+_SO_PATH = os.path.join(_REPO, "build", "native", "liblpe_native.so")
+_CXXFLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")  # as native/Makefile
 
 _lib = None
 _tried = False
+
+
+def _build(so_path: str) -> None:
+    """Compile the loader to a per-process file, then rename it onto
+    `so_path` (atomic on one file system)."""
+    os.makedirs(os.path.dirname(so_path), exist_ok=True)
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["g++", *_CXXFLAGS, "-o", tmp, _SOURCE],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _get_lib():
@@ -28,10 +50,7 @@ def _get_lib():
     _tried = True
     if not os.path.exists(_SO_PATH):
         try:
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR, "build/liblpe_native.so"],
-                check=True, capture_output=True, timeout=120,
-            )
+            _build(_SO_PATH)
         except (OSError, subprocess.SubprocessError):
             return None
     try:

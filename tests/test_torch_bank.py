@@ -23,7 +23,7 @@ C, T1, G, GROUP = 16, 8, 4, 16
 @pytest.fixture(scope="module")
 def banks():
     jd = JDetector.read(BANK)
-    td = Detector.read(BANK)
+    td = Detector.read(BANK, device="cpu")
     cid = jd.class_ids[0]
     assert td.class_ids == [cid]
     return jd.bank(cid), td.bank(cid)
@@ -84,13 +84,13 @@ def test_convert_carries_the_reference_bank(banks):
     the port builds itself (padded GEMM operands included)."""
     jb, tb = banks
     jf, tf, Kc = _slice64(jb, tb)
-    lf = convert.level_features_from_numpy(*(np.asarray(a) for a in jf))
+    lf = convert.level_features_from_numpy(*(np.asarray(a) for a in jf), device="cpu")
     for a, b in zip(lf, tf):
         assert torch.equal(a, b)
     jwg, jcnt = JM.build_group_bound(jf, C, T1, Kc, GROUP)
     carried = convert.bank_from_numpy(
         JM.build_gemm_weights(jf, C, T1, Kc), JM.build_cell_weights(jf, C, T1, Kc),
-        JM.build_cell_weights_fine(jf, C, T1, Kc, G), jwg, jcnt)
+        JM.build_cell_weights_fine(jf, C, T1, Kc, G), jwg, jcnt, device="cpu")
     built = TM.build_bank_weights(tf, C, T1, Kc, G, GROUP)
     assert [w.n for w in carried[:4]] == [64, 64, 64, 4]
     for a, b in zip(carried[:4], built[:4]):
@@ -114,3 +114,33 @@ def test_tiled_bank_matches_array_tiling(banks):
             assert torch.equal(b[:30], torch.cat([a] * 3))
         assert not t.live[30:].any() and not t.count[30:].any()
         assert (t.size[30:] == DEAD_SIZE).all()
+
+
+def test_native_loader_builds_concurrently(tmp_path):
+    """Four fresh processes build the native loader into one empty
+    directory at once and each loads a bank file through it: the build
+    publishes with an atomic rename, so none opens a half-written library
+    (an in-place link let a concurrent process read a truncated file and
+    lose the loader for its lifetime).  The port never loads the library
+    that `make -C native` writes in place."""
+    import os
+    import subprocess
+    import sys
+
+    from linemod_pose_estimation_tpu_torch.utils import native
+
+    assert os.sep + os.path.join("native", "build") + os.sep not in native._SO_PATH
+    so = str(tmp_path / "liblpe_native.so")
+    code = (
+        "import sys\n"
+        "from linemod_pose_estimation_tpu_torch.utils import native\n"
+        "from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank\n"
+        f"native._SO_PATH = {so!r}\n"
+        "meta, glob = TemplateBank.read_params_yaml('data/boxNew_rgbd_params.yml.gz')\n"
+        "assert meta.R.shape == (2652, 3, 3), meta.R.shape\n"
+    )
+    procs = [subprocess.Popen([sys.executable, "-c", code], stderr=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    errs = [p.communicate(timeout=300)[1] for p in procs]
+    assert [p.returncode for p in procs] == [0] * 4, errs
+    assert sorted(os.listdir(tmp_path)) == ["liblpe_native.so"]

@@ -90,7 +90,7 @@ def test_cluster_matches_and_nms(meta, seed):
     args = (glob.radius_min, glob.radius_step, 20, 2, 16, 8)
     cj = JC.cluster_matches(JMatches(*(jnp.asarray(a) for a in f)), jnp.asarray(od),
                             jnp.asarray(rects), *args)
-    ct = TC.cluster_matches(convert.matches_from_numpy(*f), t(od), t(rects), *args)
+    ct = TC.cluster_matches(convert.matches_from_numpy(*f, device="cpu"), t(od), t(rects), *args)
     for name in ("count", "bbox", "valid", "member_idx", "member_valid"):
         np.testing.assert_array_equal(getattr(ct, name).numpy(),
                                       np.asarray(getattr(cj, name)), err_msg=name)
@@ -225,7 +225,7 @@ def test_canonicalize(mode):
 def test_non_default_options_raise(meta, option):
     m, glob = meta
     params = TC.CascadeParams(**option)
-    det = convert.detector_from_reference(JBank("box", JParams(), []))
+    det = convert.detector_from_reference(JBank("box", JParams(), []), device="cpu")
     name = next(iter(option))
     with pytest.raises(NotImplementedError, match=name):
         TPipe(det, convert.metadata_from_reference(m), convert.globals_from_reference(glob),
@@ -266,7 +266,7 @@ def pipelines(meta):
     kw = dict(max_clusters=2, model_cap=512, scene_cap=512, icp_max_iter=40,
               cluster_filter_thresh=0)
     jpipe = JPipe(jdet, jmeta, glob, mesh, JC.CascadeParams(**kw), render_size=(W, H))
-    tpipe = TPipe(convert.detector_from_reference(jdet.bank("box")),
+    tpipe = TPipe(convert.detector_from_reference(jdet.bank("box"), device="cpu"),
                   convert.metadata_from_reference(jmeta), convert.globals_from_reference(glob),
                   mesh, TC.CascadeParams(**kw), render_size=(W, H))
     scene = render(kept[0])
@@ -321,7 +321,7 @@ def test_golden_cascade_on_cpu():
     default CascadeParams, threshold 91."""
     with np.load(GOLDEN) as z:
         g = {k: z[k] for k in z.files}
-    pipe = TPipe.from_files(BANK, PARAMS, cuboid_mesh())
+    pipe = TPipe.from_files(BANK, PARAMS, cuboid_mesh(), device="cpu")
     K = pipe.K_render
     for f in range(g["rgb"].shape[0]):
         cloud = TP.depth_to_cloud(TP.true_div(t(g["depth_mm"][f]), 1000.0), K)

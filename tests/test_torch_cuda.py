@@ -65,6 +65,49 @@ def test_spread_response_kernel_equals_plain(cuda, T):
     assert torch.equal(CK.spread_response(q, T), CK.spread_response_plain(q, T))
 
 
+ODD_SHAPES = [(1, 7), (7, 13), (3, 3), (1, 1), (37, 131), (65, 249), (480, 643)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", ODD_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_preprocess_kernels_on_odd_shapes(cuda, shape):
+    """K1 (u8 and f32 input) and K2 (T=5 and 8) against their plain
+    versions on shapes off the kernels' tiles: widths that are not a
+    multiple of K1's 92 output columns nor of K2's 4 pixels, 1- and 7-row
+    frames, 1x1 and 3x3 frames."""
+    H, W = shape
+    g = torch.Generator(device=cuda).manual_seed(H * 1000 + W)
+    rgb = torch.randint(0, 256, (2, H, W, 3), device=cuda, generator=g, dtype=torch.uint8)
+    yy = torch.arange(H, device=cuda)[:, None].float()
+    xx = torch.arange(W, device=cuda)[None, :].float()
+    rgb[1, ..., 0] = ((torch.sin(yy / 3.0) + torch.cos(xx / 4.0)) * 60 + 128).to(torch.uint8)
+    for x in (rgb, rgb.float()):
+        assert torch.equal(CP.quantize_color_gradient(x, 10.0),
+                           CP.quantize_color_gradient_plain(x, 10.0))
+    q = (1 << torch.randint(0, 8, (2, H, W), device=cuda, generator=g)).to(torch.uint8)
+    q = q * (torch.rand((2, H, W), device=cuda, generator=g) < 0.3)
+    for T in (5, 8):
+        assert torch.equal(CK.spread_response(q, T), CK.spread_response_plain(q, T))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("W", [640, 321])
+def test_spread_response_channel_offset_write(cuda, B, W):
+    """K2 writing into channels [c, c + 8) of a wider stack equals its
+    plain version there and leaves every other channel's bytes alone."""
+    g = torch.Generator(device=cuda).manual_seed(B)
+    q = (1 << torch.randint(0, 8, (B, 48, W), device=cuda, generator=g)).to(torch.uint8)
+    q = q * (torch.rand((B, 48, W), device=cuda, generator=g) < 0.3)
+    for T, c in ((5, 0), (8, 8), (5, 3)):
+        stack = torch.full((B, 19, 48, W), 0xAB, dtype=torch.uint8, device=cuda)
+        got = CK.spread_response(q, T, out=stack, channel=c)
+        assert got.data_ptr() == stack[:, c].data_ptr()
+        assert torch.equal(stack[:, c:c + 8], CK.spread_response_plain(q, T))
+        rest = torch.cat([stack[:, :c], stack[:, c + 8:]], dim=1)
+        assert bool((rest == 0xAB).all())
+
+
 @pytest.mark.requires_cuda
 def test_walk_kernel_equals_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)

@@ -93,7 +93,7 @@ def _subset_banks(frames_idx_tids):
     sub = sorted(set(frames_idx_tids) | set(range(0, 2652, 97)))
     jsub = JDetector(jb.params)
     jsub.attach_bank(JBank(cid, jb.params, [jb.templates[i] for i in sub]))
-    return jsub, convert.detector_from_reference(jsub.bank(cid)), cid
+    return jsub, convert.detector_from_reference(jsub.bank(cid), device="cpu"), cid
 
 
 @pytest.fixture(scope="module")
@@ -138,7 +138,7 @@ def test_refine_candidates_opencv(frames, detectors):
     tb = td.bank(cid)
     got = TM.refine_candidates_opencv(
         t(np.asarray(R0)), tb.merged_features(0),
-        convert.coarse_matches_from_numpy(*(np.asarray(a) for a in cand)), 8, 80.0,
+        convert.coarse_matches_from_numpy(*(np.asarray(a) for a in cand), device="cpu"), 8, 80.0,
         E0=tb.extent(0), fine_T=5)
     for name, a, b in zip(want._fields, got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)

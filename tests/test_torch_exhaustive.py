@@ -40,7 +40,7 @@ def detectors():
     jb = jd.bank(cid)
     jsub = JDetector(jb.params)
     jsub.attach_bank(JBank(cid, jb.params, [jb.templates[i] for i in S.CROP_BANK_SUBSET]))
-    return jsub, convert.detector_from_reference(jsub.bank(cid)), cid
+    return jsub, convert.detector_from_reference(jsub.bank(cid), device="cpu"), cid
 
 
 def _assert_equal(got, want):
@@ -57,7 +57,7 @@ def test_exhaustive_batched_matcher_and_k5_chain(detectors):
     B = rgbs.shape[0]
     jm = JMatcher(jd, cid, THR, B, top_k=64)
     want = jm.match_batch(jnp.asarray(rgbs), jnp.asarray(deps))
-    tm = BatchedMatcher(td, cid, THR, B, top_k=64)
+    tm = BatchedMatcher(td, cid, THR, B, top_k=64, device="cpu")
     R0, cands, n_valid = tm.candidates(rgbs, deps)
     assert n_valid is None and tm.last_pool is None
     got = tm.refine(R0, cands)
@@ -88,9 +88,9 @@ def test_other_prune_modes_are_not_ported(detectors):
     _, td, cid = detectors
     for mode in ("positions", "two_axis"):
         with pytest.raises(NotImplementedError, match=mode):
-            BatchedMatcher(td, cid, THR, 2, prune=True, prune_mode=mode)
+            BatchedMatcher(td, cid, THR, 2, prune=True, prune_mode=mode, device="cpu")
     with pytest.raises(ValueError, match="requires prune=True"):
-        BatchedMatcher(td, cid, THR, 2, prune_mode="pooled")
+        BatchedMatcher(td, cid, THR, 2, prune_mode="pooled", device="cpu")
 
 
 def test_coarse_scores_gemm_flat(detectors):
@@ -134,10 +134,11 @@ def test_window_golden_on_cpu():
         gold = {k: z[k] for k in z.files}
     with np.load("tests/data/torch_cascade_golden.npz") as z:
         rgbs, deps = z["rgb"], z["depth_mm"]
-    td = Detector.read(BANK)
+    td = Detector.read(BANK, device="cpu")
     cid = td.class_ids[0]
     thr = float(gold["threshold"])
-    m = BatchedMatcher(td, cid, thr, rgbs.shape[0], top_k=int(gold["top_k"]))
+    m = BatchedMatcher(td, cid, thr, rgbs.shape[0], top_k=int(gold["top_k"]),
+                       device="cpu")
     R0, cands, _ = m.candidates(rgbs, deps)
     got = {"x_": m.refine(R0, cands),
            "k5_": TM.refine_candidates_pallas_batched(R0, m.feats0, cands, m.T1, thr,

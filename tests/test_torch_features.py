@@ -133,3 +133,54 @@ def test_preprocess_frames_batched_equals_reference():
         torch.from_numpy(rgbs), torch.from_numpy(deps), use_depth=True,
         plain=True)
     assert torch.equal(P0, R0) and torch.equal(P1, R1)
+
+
+def test_normal_lut_is_the_ports_own_copy():
+    """The port reads its own copy of the DepthNormal NORMAL_LUT, and the
+    copy is byte-equal to the JAX package's file."""
+    import os
+
+    port = TF._NORMAL_LUT_PATH
+    ref = os.path.join(os.path.dirname(JF.__file__), "normal_lut_calib.npz")
+    assert os.path.dirname(os.path.realpath(port)) == os.path.dirname(
+        os.path.realpath(TF.__file__))
+    with open(port, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("use_depth", [False, True])
+def test_stacked_preprocess_equals_the_concatenated_path(use_depth):
+    """K2 (plain on the CPU) writing into channel slices of preallocated
+    stacks gives the same bytes as separate spread_response calls joined
+    by torch.cat, at both levels; the pyramid's fields are views of those
+    stacks, and the untouched channels of a stack keep their bytes."""
+    frames = _renders(120)[:2]
+    rgbs = torch.from_numpy(np.stack([r for r, _ in frames]))
+    deps = torch.from_numpy(np.stack([d for _, d in frames]))
+    R0, R1 = TM.preprocess_frames_batched(rgbs, deps, use_depth=use_depth)
+    q0 = TF.quantize_color_gradient(rgbs)[0]
+    rgb1 = torch.stack([TF.pyr_down(rgbs[..., c].float()) for c in range(3)], -1)
+    q1 = TF.quantize_color_gradient(rgb1)[0]
+    want0 = [CK.spread_response_plain(q0, 5)]
+    want1 = [CK.spread_response_plain(q1, 8)]
+    if use_depth:
+        n0 = TF.quantize_depth_normal(deps)
+        want0.append(CK.spread_response_plain(n0, 5))
+        want1.append(CK.spread_response_plain(n0[:, ::2, ::2].contiguous(), 8))
+    assert torch.equal(R0, torch.cat(want0, dim=1))
+    assert torch.equal(R1, torch.cat(want1, dim=1))
+    pyr = TM.preprocess_pyramid_batched(rgbs, deps, use_depth=use_depth)
+    assert torch.equal(pyr.grad_r0, want0[0]) and torch.equal(pyr.grad_r1, want1[0])
+    if use_depth:
+        assert pyr.norm_r0.data_ptr() == pyr.grad_r0.data_ptr() + 8 * R0[0, 0].numel()
+        assert torch.equal(pyr.norm_r0, want0[1]) and torch.equal(pyr.norm_r1, want1[1])
+    else:
+        assert pyr.norm_r0 is None and pyr.norm_r1 is None
+    # a channel-offset write leaves the other channels as they were
+    stack = torch.full((2, 19, *q0.shape[1:]), 0xAB, dtype=torch.uint8)
+    got = CK.spread_response(q0, 5, out=stack, channel=6)
+    assert got.data_ptr() == stack[:, 6].data_ptr()
+    assert torch.equal(stack[:, 6:14], want0[0])
+    assert bool((stack[:, :6] == 0xAB).all()) and bool((stack[:, 14:] == 0xAB).all())
+    with pytest.raises(ValueError, match="channel"):
+        CK.spread_response(q0, 5, out=stack, channel=12)

@@ -72,8 +72,8 @@ def test_pooled_matcher_equals_reference(case):
         jnp.asarray(Rb), Wg, Wcell, Wf, feats.count, vpos, thr, T1, KC, G,
         pool1, pool2, top_k, Wc, r_cap=r_cap, **gkw)
 
-    w = convert.bank_from_numpy(Wg, Wcell, Wf, *gargs)
-    tf = convert.level_features_from_numpy(*(np.asarray(a) for a in feats))
+    w = convert.bank_from_numpy(Wg, Wcell, Wf, *gargs, device="cpu")
+    tf = convert.level_features_from_numpy(*(np.asarray(a) for a in feats), device="cpu")
     tkw = {}
     if group:
         tkw = dict(W_group=w.W_group, group_counts=w.group_counts,

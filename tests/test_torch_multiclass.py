@@ -49,7 +49,7 @@ def _bank(n, fmax, extent, seed):
 
 def _both(fields):
     return (JM.LevelFeatures(*(jnp.asarray(a) for a in fields)),
-            convert.level_features_from_numpy(*fields))
+            convert.level_features_from_numpy(*fields, device="cpu"))
 
 
 def _assert_equal(got, want, what=""):
@@ -142,7 +142,7 @@ def test_merge_and_split_ties():
               rng.integers(0, 5, (Bq, Kq)).astype(np.int32), sim, valid)
     b_fields = (fields[0] + 10,) + fields[1:]
     jc = [JM.CoarseMatches(*(jnp.asarray(a) for a in f)) for f in (fields, b_fields)]
-    tc = [convert.coarse_matches_from_numpy(*f) for f in (fields, b_fields)]
+    tc = [convert.coarse_matches_from_numpy(*f, device="cpu") for f in (fields, b_fields)]
     jcat, jnv = JM.merge_candidates_sorted(jc)
     tcat, tnv = TM.merge_candidates_sorted(tc)
     _assert_equal(tcat, jcat)
@@ -154,7 +154,7 @@ def test_merge_and_split_ties():
          np.zeros((Bq, 2 * Kq), np.int32), np.concatenate([sim, sim], 1),
          np.concatenate([valid, valid], 1))
     jm = JM.Matches(*(jnp.asarray(a) for a in m))
-    tm = convert.matches_from_numpy(*m)
+    tm = convert.matches_from_numpy(*m, device="cpu")
     for k in (4, 2 * Kq):
         for a, b in zip(TM.split_matches_by_class(tm, ((0, 10), (10, 20)), k),
                         JM.split_matches_by_class(jm, ((0, 10), (10, 20)), k)):
@@ -180,7 +180,7 @@ def two_class_detectors():
         sub = JBank(cid, full.params, [full.templates[i] for i in ids])
         jd.attach_bank(sub)
         if td is None:
-            td = convert.detector_from_reference(sub)
+            td = convert.detector_from_reference(sub, device="cpu")
         else:
             td.attach_bank(TemplateBank(cid, td.params,
                                         convert.templates_from_reference(sub.templates)))
@@ -195,7 +195,7 @@ def test_multiclass_batched_matcher(two_class_detectors, pools):
     kw = dict(top_k=64, prune_mode="pooled", pool_coarse=pools[0], pool_fine=pools[1])
     jm = JMulti(jd, ["a", "b"], [70.0, 72.0], B, **kw)
     want = jm.match_batch(jnp.asarray(rgbs), jnp.asarray(deps))
-    tm = MultiClassBatchedMatcher(td, ["a", "b"], [70.0, 72.0], B, **kw)
+    tm = MultiClassBatchedMatcher(td, ["a", "b"], [70.0, 72.0], B, device="cpu", **kw)
     got = tm.match_batch(rgbs, deps)
     assert list(got) == ["a", "b"]
     for cid in ("a", "b"):
@@ -208,7 +208,7 @@ def test_multiclass_batched_matcher(two_class_detectors, pools):
 def test_multiclass_positions_mode_is_not_ported(two_class_detectors):
     _, td = two_class_detectors
     with pytest.raises(NotImplementedError, match="positions"):
-        MultiClassBatchedMatcher(td, ["a", "b"], 70.0, 2)
+        MultiClassBatchedMatcher(td, ["a", "b"], 70.0, 2, device="cpu")
 
 
 @pytest.mark.slow
@@ -221,7 +221,7 @@ def test_two_object_golden_on_cpu():
         gold = {k: z[k] for k in z.files}
     with np.load("tests/data/torch_cascade_golden.npz") as z:
         rgbs, deps = z["rgb"], z["depth_mm"]
-    td = Detector.read(BANK)
+    td = Detector.read(BANK, device="cpu")
     cid = td.class_ids[0]
     bank = td.bank(cid)
     td.attach_bank(TemplateBank(cid + "_second", bank.params, bank.templates))
@@ -229,7 +229,7 @@ def test_two_object_golden_on_cpu():
     mc = MultiClassBatchedMatcher(td, [cid, cid + "_second"],
                                   list(gold["two_object_thresholds"]), B,
                                   top_k=int(gold["top_k"]), prune_mode="pooled",
-                                  pool_coarse=56 * B, pool_fine=36 * B)
+                                  pool_coarse=56 * B, pool_fine=36 * B, device="cpu")
     out = mc.match_batch(rgbs, deps)
     for i, c in enumerate((cid, cid + "_second")):
         for name, a in out[c]._asdict().items():

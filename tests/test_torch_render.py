@@ -44,7 +44,7 @@ def _K(glob, W, H):
 
 def _both(tris, R, T, K, W, H):
     j = JR.render(jnp.asarray(tris), jnp.asarray(R), jnp.asarray(T), jnp.asarray(K), W, H)
-    t = TR.render(convert.triangles_from_numpy(tris), torch.from_numpy(R),
+    t = TR.render(convert.triangles_from_numpy(tris, device="cpu"), torch.from_numpy(R),
                   torch.from_numpy(T), torch.from_numpy(K), W, H)
     return j, t
 
@@ -150,7 +150,8 @@ def test_render_batch_equals_single(scene):
     meta, glob, tris = scene
     ids = [0, 700, 2000]
     K = _K(glob, 128, 128)
-    r = TR.Renderer(cuboid_mesh(subdiv=8), 128, 128, float(K[0, 0]), float(K[1, 1]))
+    r = TR.Renderer(cuboid_mesh(subdiv=8), 128, 128, float(K[0, 0]), float(K[1, 1]),
+                    device="cpu")
     batch = r.render_batch(meta.R[ids], meta.T[ids])
     for i, tid in enumerate(ids):
         one = r.render(meta.R[tid], meta.T[tid])

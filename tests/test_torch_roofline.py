@@ -1,0 +1,43 @@
+"""The bound reckoner (ops/roofline.py): byte and operation counts at the
+main path's shapes, and which of the two bounds each kernel."""
+
+import pytest
+
+from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+
+
+def test_preprocess_kernels_at_the_main_path_shapes():
+    k1_0 = RL.quantize_cg(32, 480, 640, 1)
+    assert k1_0.bytes == 39_321_600
+    assert k1_0.by == "operations"
+    assert k1_0.ms == pytest.approx(32 * 480 * 640 * RL.QUANTIZE_CG_OPS_PER_PX / 67e9)
+    k1_1 = RL.quantize_cg(32, 240, 320, 4)  # level 1: the f32 pyrDown output
+    assert k1_1.bytes == 31_948_800 and k1_1.by == "bytes"
+    assert k1_1.ms == pytest.approx(31_948_800 / 3.35e9)
+    for T in (5, 8):
+        k2 = RL.spread_response(32, 480, 640, T)
+        assert k2.bytes == 88_473_600 and k2.by == "bytes"
+        assert k2.ms == pytest.approx(88_473_600 / 3.35e9)
+    assert RL.spread_response(32, 240, 320, 8).bytes == 22_118_400
+    assert RL.spread_response(1, 480, 640, 5).bytes == 2_764_800  # K2b
+
+
+def test_data_dependent_kernels():
+    # K3: 568 walked slots of 128 live features each
+    k3 = RL.walk_scores(32, 128, 128, 568 * 128, 1_000_000)
+    assert k3.ops == 568 * 128 * 256
+    assert k3.bytes == 32 * 128 * 128 * 13 + 32 * 128 * 8 + 32 * 4 + 1_000_000 + 32 * 128 * 1024
+    # K4 is operation-bound at the cascade's shapes, K5 at 4096 candidates
+    k4 = RL.raster_zbuffer(8, 1984, 256, 256, 21, 10**8)
+    assert k4.by == "operations" and k4.ops == 10**8 * RL.RASTER_OPS_PER_PAIR
+    k5 = RL.refine_scores(4096, 128, 24, 4096 * 100, 2_000_000)
+    assert k5.ops == 4096 * 100 * 576
+    assert k5.bytes == 4096 * 128 * 12 + 4096 * 16 + 2_000_000 + 4096 * 576 * 4
+
+
+def test_bound_takes_the_larger_time():
+    b = RL.bound(3_350_000_000, 10**9)  # 1 ms of bytes, 0.015 ms of operations
+    assert (b.bytes, b.ops, b.by) == (3_350_000_000, 10**9, "bytes")
+    assert b.ms == pytest.approx(1.0)
+    b = RL.bound(10**6, 67_000_000_000)
+    assert b.by == "operations" and b.ms == pytest.approx(1.0)

@@ -31,10 +31,10 @@ GOLDEN = "tests/data/torch_port_golden.npz"
 
 
 def test_batched_matcher_equals_reference():
-    jd, td = JDetector.read(BANK), Detector.read(BANK)
+    jd, td = JDetector.read(BANK), Detector.read(BANK, device="cpu")
     cid = td.class_ids[0]
     jb, tb = jd.bank(cid), td.bank(cid)
-    jsub, tsub = JDetector(jb.params), Detector(tb.params)
+    jsub, tsub = JDetector(jb.params), Detector(tb.params, device="cpu")
     jsub.attach_bank(JBank(cid, jb.params, [jb.templates[i] for i in S.CROP_BANK_SUBSET]))
     tsub.attach_bank(TemplateBank(cid, tb.params, [tb.templates[i] for i in S.CROP_BANK_SUBSET]))
     B = 2
@@ -44,7 +44,7 @@ def test_batched_matcher_equals_reference():
     rgbs, deps = S.golden_crops()
     jm = JMatcher(jsub, cid, 70.0, B, **kw)
     want = jm.match_batch(jnp.asarray(rgbs), jnp.asarray(deps))
-    tm = BatchedMatcher(tsub, cid, 70.0, B, **kw)
+    tm = BatchedMatcher(tsub, cid, 70.0, B, device="cpu", **kw)
     got = tm.match_batch(rgbs, deps)
     for name, a, b in zip(want._fields, got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
@@ -57,14 +57,31 @@ def test_batched_matcher_equals_reference():
 
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke.py, import with jax blocked
-    and never pull in the JAX package."""
+    and never pull in the JAX package; neither the imports nor the port's
+    data reads (the NORMAL_LUT of DepthNormal, a bank, a depth frame's
+    quantization) open any path under the JAX package's tree."""
     code = (
-        "import sys, importlib, pkgutil\n"
+        "import os, sys, importlib, pkgutil\n"
+        "jax_tree = os.path.realpath('linemod_pose_estimation_tpu') + os.sep\n"
+        "opened = []\n"
+        "def hook(event, args):\n"
+        "    if event == 'open' and isinstance(args[0], (str, bytes, os.PathLike)):\n"
+        "        p = os.path.realpath(os.fsdecode(args[0]))\n"
+        "        if p.startswith(jax_tree):\n"
+        "            opened.append(p)\n"
+        "sys.addaudithook(hook)\n"
         "sys.modules['jax'] = None\n"
         "import linemod_pose_estimation_tpu_torch as P\n"
         "for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import torch\n"
+        "from linemod_pose_estimation_tpu_torch.ops import features as F\n"
+        "from linemod_pose_estimation_tpu_torch.models.detector import Detector\n"
+        "F.normal_lut('cpu')\n"
+        "F.quantize_depth_normal(torch.full((1, 24, 24), 800.0))\n"
+        "Detector.read('data/boxNew_rgbd_templates.yml.gz', device='cpu')\n"
+        "assert not opened, opened\n"
         "bad = [m for m in sys.modules if m == 'linemod_pose_estimation_tpu'\n"
         "       or m.startswith('linemod_pose_estimation_tpu.')]\n"
         "assert not bad, bad\n"
@@ -90,12 +107,12 @@ def test_golden_batch_on_cpu():
     Matches, n_valid and per-frame R0/R1 hashes equal the JAX reference's."""
     with np.load(GOLDEN) as z:
         gold = {k: z[k] for k in z.files}
-    td = Detector.read(BANK)
+    td = Detector.read(BANK, device="cpu")
     cid = td.class_ids[0]
     rgbs, deps, _ = S.golden_batch(int(gold["seed"]))
     B = rgbs.shape[0]
     m = BatchedMatcher(td, cid, float(gold["threshold"]), B,
-                       **slice_settings(B))
+                       device="cpu", **slice_settings(B))
     R0, R1 = TM.preprocess_frames_batched(
         torch.from_numpy(rgbs), torch.from_numpy(deps), use_depth=True)
     for b in range(B):

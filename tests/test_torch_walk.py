@@ -60,7 +60,7 @@ def test_walk_equals_reference(contiguous_live, with_n_valid):
         JM.CoarseMatches(*(jnp.asarray(a) for a in cand)), T1, thr, E0,
         fine_T=T0, n_valid=None if nv is None else jnp.asarray(nv))
     got = TM.refine_candidates_opencv_batched(
-        torch.from_numpy(R0), convert.level_features_from_numpy(*feats),
+        torch.from_numpy(R0), convert.level_features_from_numpy(*feats, device="cpu"),
         TM.CoarseMatches(*(torch.from_numpy(a) for a in cand)), T1, thr, E0,
         fine_T=T0, n_valid=None if nv is None else torch.from_numpy(nv))
     for name, a, b in zip(want._fields, got, want):

@@ -67,8 +67,8 @@ def _jax(R0, feats, cand):
 
 
 def _port(R0, feats, cand):
-    return (torch.from_numpy(R0), convert.level_features_from_numpy(*feats),
-            convert.coarse_matches_from_numpy(*cand))
+    return (torch.from_numpy(R0), convert.level_features_from_numpy(*feats, device="cpu"),
+            convert.coarse_matches_from_numpy(*cand, device="cpu"))
 
 
 def _frame(cand, b):
