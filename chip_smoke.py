@@ -24,12 +24,19 @@ from csrc/.  Phases, one JSON line each:
       that run, PooledStats, found rate, batch time;
   2c. the same batch with pool_coarse forced tiny: the exhaustive fallback
       runs and the Matches equal 2b's;
-  3. K3 against its plain version on 2b's candidate sets, bitwise;
+  3. K3 against its plain version on 2b's candidate sets, bitwise, timed
+     with its bound; then on odd plans (utils/kernel_cases.py: frames
+     with n_valid = 0, walked slots with every feature dead, F = 37 and
+     300, placements past the frame's edges, B = 1, T = 4);
   4. K4 (triangle z-buffer) against its plain version, bitwise on depth,
-     mask and shade: the cascade's shapes (the cuboid stand-in for the
-     boxNew mesh, 1984 padded triangles, 8 bank poses in the 256x256
-     render viewport), one full 640x480 frame at the bank's intrinsics,
-     and one off-screen pose (every z inf);
+     mask and shade, timed with its bound: the cuboid stand-in for the
+     boxNew mesh (1984 padded triangles) at 4 bank poses in the 256x256
+     render viewport (detect's 4 cluster lanes) and at 8, one full
+     640x480 frame at the bank's intrinsics, and one off-screen pose
+     (every z inf); then on odd cases (utils/kernel_cases.py: every row
+     duplicated with another shade, so only the first index may win each
+     exact depth tie; a tile that > 256 triangles reach; 250x170 and 1x1
+     viewports);
   5. K2b: the single-frame preprocess_frame at 480x640, both modalities,
      its B=1 K1 and K2 launches against the plain path, bitwise;
   6. the cascade golden: DetectionPipeline.detect at full width (640x480,
@@ -40,8 +47,10 @@ from csrc/.  Phases, one JSON line each:
      valid flag and rect equal and the pose within POSE_TOL (0.01 degrees
      / 0.01 mm), a detection on each object frame and none on the
      background frame; launch counts of K1-K4, detect ms per frame;
-     then a control: the same frames with TF32 matmuls switched on must
-     fall outside POSE_TOL (so the limit sees reduced precision);
+     K3 and K4 on the operands one detect passes them (captured from the
+     call), bitwise against plain and timed; then a control: the same
+     frames with TF32 matmuls switched on must fall outside POSE_TOL (so
+     the limit sees reduced precision);
   7. the K5 path: BatchedMatcher(prune=False) (the exhaustive mode) gives
      phase 2b's batch its 4096 candidates over the tiled bank, and
      refine_candidates_pallas_batched refines them through K5 (launch
@@ -67,7 +76,8 @@ from csrc/.  Phases, one JSON line each:
 Then a kernels summary line (per kernel: launches on its path, the
 summed time, plain time and bound of those launches at their shapes,
 what bounds it, the share of the bound, and library_ms null: no single
-PyTorch call computes any of these functions), the card line, and last
+PyTorch call computes any of these functions; the other timed shapes
+are rows of its `shapes`), the card line, and last
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing the last line.  It needs CUDA: without a
 card it exits 2 before doing anything.
@@ -78,6 +88,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,12 +151,13 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def kernel_times(fn, kernel: str, reps: int = 20) -> dict:
-    """The time of one launch of fn()'s kernel, two ways, after a warm-up:
+    """The time of one call of fn()'s kernel, two ways, after a warm-up:
     `ms`, the kernel's own device time (torch.profiler's CUDA time of the
-    kernels whose name holds `kernel`, over `reps` launches; CUDA events
-    if the trace holds no device time), and `call_ms`, the CUDA-event time
-    per call of `reps` calls back to back, which for a kernel shorter than
-    the wrapper's host work is the host's launch rate."""
+    kernels whose name holds `kernel`, over `reps` calls; CUDA events if
+    the trace holds no device time), with `parts` per kernel name where a
+    call launches several, and `call_ms`, the CUDA-event time per call of
+    `reps` calls back to back, which for a kernel shorter than the
+    wrapper's host work is the host's launch rate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -154,10 +166,18 @@ def kernel_times(fn, kernel: str, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and kernel in e.key)
-    return dict(ms=dev_us / 1e3 / reps if dev_us > 0 else call_ms, call_ms=call_ms,
-                ms_from="profiler" if dev_us > 0 else "cuda_events")
+    parts = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type == DeviceType.CUDA and kernel in e.key and us > 0:
+            short = re.search(r"\w*%s\w*" % re.escape(kernel), e.key).group(0)
+            parts[short] = parts.get(short, 0.0) + us / 1e3 / reps
+    dev_ms = sum(parts.values())
+    out = dict(ms=dev_ms if dev_ms > 0 else call_ms, call_ms=call_ms,
+               ms_from="profiler" if dev_ms > 0 else "cuda_events")
+    if len(parts) > 1:
+        out["parts"] = parts
+    return out
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -183,6 +203,50 @@ def pose_err(a, b) -> tuple[float, float]:
     return deg, 1000.0 * float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
 
 
+def raster_vs_plain(coefs, w: int, h: int, name: str) -> dict:
+    """K4 against its plain version, bitwise on depth, mask and shade."""
+    from linemod_pose_estimation_tpu_torch.ops import raster as RA
+
+    (zk, sk), (zp, sp) = RA.raster_zbuffer(coefs, w, h), RA.raster_zbuffer_plain(coefs, w, h)
+    hit = torch.isfinite(zp)
+    require(torch.equal(torch.isfinite(zk), hit), f"K4 {name}: mask differs from plain")
+    require(torch.equal(zk, zp) and torch.equal(sk, sp),
+            f"K4 {name}: depth or shade differs from plain")
+    err = float(torch.where(hit, (zk - zp).abs() + (sk - sp).abs(), 0.0).max())
+    return dict(max_abs_err=err, covered=int(hit.sum()), poses=int(coefs.shape[0]),
+                triangles=int(coefs.shape[1]), viewport=[w, h])
+
+
+def raster_times(coefs, w: int, h: int) -> dict:
+    from linemod_pose_estimation_tpu_torch.ops import raster as RA
+
+    return dict(**kernel_times(lambda: RA.raster_zbuffer(coefs, w, h), "raster_zbuffer"),
+                plain_ms=cuda_ms(lambda: RA.raster_zbuffer_plain(coefs, w, h), 3),
+                bound=raster_bound(coefs, w, h)._asdict())
+
+
+def first_calls(targets, fn) -> dict:
+    """Run fn() with each (module, name) of `targets` wrapped, and return
+    {name: positional args of its first call}; the wrapped functions run
+    as they are (and count their launches)."""
+    seen, saved = {}, []
+    for mod, name in targets:
+        orig = getattr(mod, name)
+        saved.append((mod, name, orig))
+
+        def spy(*a, _name=name, _orig=orig):
+            seen.setdefault(_name, a)
+            return _orig(*a)
+
+        setattr(mod, name, spy)
+    try:
+        fn()
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    return seen
+
+
 def cascade_phases(dev: torch.device, perf: dict) -> dict:
     """Phases 4-6 (K4, K2b, the cascade golden); fills `perf` and returns
     the launch counts of the checked detect run."""
@@ -197,6 +261,7 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
     from linemod_pose_estimation_tpu_torch.ops import match as M
     from linemod_pose_estimation_tpu_torch.ops import raster as RA
     from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+    from linemod_pose_estimation_tpu_torch.utils import kernel_cases as KC
     from linemod_pose_estimation_tpu_torch.utils import pointcloud as TP
     from linemod_pose_estimation_tpu_torch.utils import scenes as S
 
@@ -212,6 +277,8 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
     Kv[0, 2] = Kv[1, 2] = vp / 2.0
     ids = [0, 300, 700, 1000, 1400, 1700, 2000, 2400]
     cases = (
+        # detect renders its max_clusters = 4 cluster lanes in one launch
+        ("detect_4x256x256", ids[:4], Kv, vp, vp),
         ("cascade_8x256x256", ids, Kv, vp, vp),
         ("frame_640x480", [0], Kf, glob.width, glob.height),
         ("offscreen", None, Kv, vp, vp),
@@ -222,21 +289,16 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
         else:
             R, T = f32(meta.R[sel]), f32(meta.T[sel])
         coefs = RA.triangle_coefficients(tris, R, T, K.expand(R.shape[0], 3, 3))
-        (zk, sk), (zp, sp) = RA.raster_zbuffer(coefs, w, h), RA.raster_zbuffer_plain(coefs, w, h)
-        hit = torch.isfinite(zp)
-        require(torch.equal(torch.isfinite(zk), hit), f"K4 {name}: mask differs from plain")
-        require(torch.equal(zk, zp) and torch.equal(sk, sp),
-                f"K4 {name}: depth or shade differs from plain")
+        perf["raster_zbuffer"][name] = raster_vs_plain(coefs, w, h, name)
         if sel is None:
-            require(not bool(hit.any()), "K4 offscreen: a pixel was covered")
-        err = float(torch.where(hit, (zk - zp).abs() + (sk - sp).abs(), 0.0).max())
-        perf["raster_zbuffer"][name] = dict(max_abs_err=err, covered=int(hit.sum()),
-                                            triangles=int(tris.shape[0]))
-        if name != "offscreen":
-            perf["raster_zbuffer"][name].update(
-                **kernel_times(lambda: RA.raster_zbuffer(coefs, w, h), "raster_zbuffer_kernel"),
-                plain_ms=cuda_ms(lambda: RA.raster_zbuffer_plain(coefs, w, h), 3),
-                bound=raster_bound(coefs, w, h)._asdict())
+            require(perf["raster_zbuffer"][name]["covered"] == 0,
+                    "K4 offscreen: a pixel was covered")
+        else:
+            perf["raster_zbuffer"][name].update(raster_times(coefs, w, h))
+    odd = {name: raster_vs_plain(coefs, w, h, name)
+           for name, (coefs, w, h) in KC.raster_cases(dev, PARAMS).items()}
+    perf["raster_zbuffer"]["odd_cases"] = dict(
+        max_abs_err=max(v["max_abs_err"] for v in odd.values()), cases=odd)
     emit("raster_vs_plain", K4=perf["raster_zbuffer"])
 
     # -- phase 5: K2b, the single-frame preprocess, kernels vs plain ---------
@@ -330,6 +392,24 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
          launches_per_detect=per_detect, setup_s=setup6_s,
          pose_tolerance_deg_mm=POSE_TOL)
 
+    # K3 and K4 on the operands one detect gives them (frame 0).
+    got = first_calls([(CK, "walk_scores"), (RA, "raster_zbuffer")],
+                      lambda: pipe.detect(*frames[0][:2], threshold=thr,
+                                          depth_mm=frames[0][2]))
+    R0d, *opsd, Td = got["walk_scores"]
+    err = max_abs_err(CK.walk_scores(R0d, *opsd, Td), CK.walk_scores_plain(R0d, *opsd, Td))
+    require(err == 0, "K3 at detect's walk differs from its plain version")
+    perf["walk_scores"]["detect_B1"] = dict(
+        **kernel_times(lambda: CK.walk_scores(R0d, *opsd, Td), "walk_scores_kernel"),
+        plain_ms=cuda_ms(lambda: CK.walk_scores_plain(R0d, *opsd, Td), 3),
+        max_abs_err=err, slots_walked=int(opsd[-1].sum()), shape=list(opsd[0].shape),
+        bound=walk_bound(R0d, opsd, Td)._asdict())
+    coefs, w, h = got["raster_zbuffer"]
+    perf["raster_zbuffer"]["detect_captured"] = dict(
+        **raster_vs_plain(coefs, w, h, "detect_captured"), **raster_times(coefs, w, h))
+    emit("detect_kernel_operands", K3=perf["walk_scores"]["detect_B1"],
+         K4=perf["raster_zbuffer"]["detect_captured"])
+
     # -- control: TF32 matmuls must break POSE_TOL ----------------------------
     worst = [0.0, 0.0]
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -403,24 +483,27 @@ def distinct_reads(shape, reads) -> int:
     return 0 if seen is None else int(seen.sum())
 
 
-def walk_bound(R0, plan, T: int):
-    """K3's bound on one walk plan (ops/roofline.py)."""
+def walk_bound(R0, ops, T: int):
+    """K3's bound on one launch's operands (ops/roofline.py): the walked
+    slots (k < n_valid[b]), their live features, the bytes they read."""
     from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+    oris, dys, dxs, live, gy0, gx0, n_valid = ops
     B, C = R0.shape[:2]
-    K, Fmax = plan.oris.shape[1:]
-    slot_ok = torch.arange(K, device=R0.device)[None, :] < plan.n_valid[:, None]
+    K, Fmax = oris.shape[1:]
+    slot_ok = torch.arange(K, device=R0.device)[None, :] < n_valid[:, None]
     q = torch.arange(16, device=R0.device)
     frame = torch.arange(B, device=R0.device)[:, None].expand(B, K)
 
     def reads():
         for f in range(Fmax):
-            sel = slot_ok & plan.live[..., f]
-            yield ((frame * C + plan.oris[..., f])[sel],
-                   ((plan.gy0[..., None] + q) * T + plan.dys[..., f, None])[sel],
-                   ((plan.gx0[..., None] + q) * T + plan.dxs[..., f, None])[sel])
+            sel = slot_ok & live[..., f]
+            yield ((frame * C + oris[..., f])[sel],
+                   ((gy0[..., None] + q) * T + dys[..., f, None])[sel],
+                   ((gx0[..., None] + q) * T + dxs[..., f, None])[sel])
 
-    live_pairs = int((slot_ok[..., None] & plan.live).sum())
-    return RL.walk_scores(B, K, Fmax, live_pairs, distinct_reads(R0.shape, reads()))
+    live_pairs = int((slot_ok[..., None] & live).sum())
+    return RL.walk_scores(B, K, Fmax, int(slot_ok.sum()), live_pairs,
+                          distinct_reads(R0.shape, reads()))
 
 
 def window_bound(R0, plan, window: int):
@@ -675,6 +758,7 @@ def main() -> int:
     from linemod_pose_estimation_tpu_torch.ops import features as F
     from linemod_pose_estimation_tpu_torch.ops import match as M
     from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+    from linemod_pose_estimation_tpu_torch.utils import kernel_cases as KC
     from linemod_pose_estimation_tpu_torch.utils import scenes as S
 
     dev = torch.device("cuda")
@@ -835,7 +919,13 @@ def main() -> int:
             **kernel_times(lambda: CK.walk_scores(R0, *ops, main_m.T0), "walk_scores_kernel"),
             plain_ms=cuda_ms(lambda: CK.walk_scores_plain(R0, *ops, main_m.T0), 3),
             max_abs_err=err, slots_walked=int(plan.n_valid.sum()),
-            bound=walk_bound(R0, plan, main_m.T0)._asdict())
+            bound=walk_bound(R0, ops, main_m.T0)._asdict())
+    odd = KC.walk_cases(dev)
+    for name, (R0o, ops, T) in odd.items():
+        err = max_abs_err(CK.walk_scores(R0o, *ops, T), CK.walk_scores_plain(R0o, *ops, T))
+        require(err == 0, f"K3 {name} differs from its plain version")
+    perf["walk_scores"]["odd_plans"] = dict(max_abs_err=0, plans=list(odd))
+    del odd
     emit("walk_vs_plain", K3=perf["walk_scores"])
 
     per_detect = cascade_phases(dev, perf)
@@ -846,15 +936,18 @@ def main() -> int:
     # -- summary -------------------------------------------------------------
     # launches: of one B=32 pooled batch (phase 2b) for K1-K3, of one detect
     # (phase 6) for K2b and K4, of one K5 chain (phase 7) for K5.  ms, plain
-    # and bound: summed over the shapes of those launches.
+    # and bound: summed over the shapes of those launches; the other timed
+    # shapes (K3 over all slots and at detect's B=1, K4 at 8 poses, on the
+    # 640x480 frame and on detect's own operands) are rows of `shapes`.
+    off_path = ("all_slots", "detect_B1", "cascade_8x256x256", "frame_640x480",
+                "detect_captured")
     launches_of = {"spread_response_b1": (per_detect["spread_response"], "one detect"),
                    "raster_zbuffer": (per_detect["raster_zbuffer"], "one detect"),
                    "refine_scores": (launches7["refine_scores"], "one K5 chain")}
     summary = []
     for key, (name, src, replaces) in KERNELS.items():
         shapes = perf[key]
-        main_shapes = [s for s, v in shapes.items()
-                       if "ms" in v and s not in ("all_slots", "frame_640x480")]
+        main_shapes = [s for s, v in shapes.items() if "ms" in v and s not in off_path]
         n, per = launches_of[key] if key in launches_of else (
             launches[key], "one B=32 pooled batch")
         ms = sum(shapes[s]["ms"] for s in main_shapes)
@@ -868,7 +961,7 @@ def main() -> int:
             bound_ms=bound_ms, bound_by=shapes[by]["bound"]["by"],
             share_of_bound=bound_ms / ms, library_ms=None,
             library_note="no single PyTorch call computes it",
-            shapes=shapes))
+            launches_per_detect=per_detect.get(key.removesuffix("_b1")), shapes=shapes))
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

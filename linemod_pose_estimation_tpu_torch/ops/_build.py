@@ -53,8 +53,8 @@ _SIGNATURES = {
     # (R0, oris, dys, dxs, live, gy0, gx0, n_valid, out,
     #  B, C, H, W, K, F, T, device, stream)
     "lpe_walk_scores": (_P,) * 9 + (_I,) * 8 + (_P,),
-    # (coefs, zbuf, sbuf, P, Tn, H, W, device, stream)
-    "lpe_raster_zbuffer": (_P,) * 3 + (_I,) * 5 + (_P,),
+    # (coefs, zbuf, sbuf, scratch, P, Tn, H, W, device, stream)
+    "lpe_raster_zbuffer": (_P,) * 4 + (_I,) * 5 + (_P,),
     # (R, oris, dys, dxs, nf, anchor_y, anchor_x, frame, out,
     #  C, H, W, K, F, window, device, stream)
     "lpe_refine_scores": (_P,) * 9 + (_I,) * 7 + (_P,),

@@ -117,16 +117,19 @@ def walk_scores_plain(R0, oris, dys, dxs, live, gy0, gx0, n_valid, T: int
 def walk_scores(R0, oris, dys, dxs, live, gy0, gx0, n_valid, T: int
                 ) -> torch.Tensor:
     """K3: raw cv::linemod walk scores (B, K, 16, 16) int32 — one block per
-    candidate slot, one thread per placement.  Operands: R0 (B, C, H, W)
-    u8; oris/dys/dxs (B, K, F) int32 (offsets already clipped to
-    [0, E0]); live (B, K, F) bool; gy0/gx0 (B, K) int32; n_valid (B,)
-    int32."""
+    candidate slot, two placements a thread, the slot's in-frame live
+    features compacted in shared memory and read 16 at a time.  Operands:
+    R0 (B, C, H, W) u8 with C * H * W < 2^31; oris/dys/dxs (B, K, F) int32
+    (offsets already clipped to [0, E0]); live (B, K, F) bool; gy0/gx0 (B,
+    K) int32; n_valid (B,) int32."""
     if R0.device.type == "cpu":
         return walk_scores_plain(R0, oris, dys, dxs, live, gy0, gx0, n_valid, T)
     if R0.dim() != 4:
         raise ValueError(f"R0: expected (B, C, H, W), got {tuple(R0.shape)}")
     B, C, H, W = R0.shape
     K, Fmax = oris.shape[1:]
+    if C * H * W >= 1 << 31:
+        raise ValueError(f"R0: a frame of {C * H * W} bytes; K3 indexes one in int32")
     _build.require(R0, "R0", torch.uint8)
     oris, dys, dxs = (a.contiguous() for a in (oris, dys, dxs))
     live, gy0, gx0, n_valid = (a.contiguous() for a in (live, gy0, gx0, n_valid))
@@ -138,6 +141,8 @@ def walk_scores(R0, oris, dys, dxs, live, gy0, gx0, n_valid, T: int
     _build.require(gx0, "gx0", torch.int32, (B, K), dev)
     _build.require(n_valid, "n_valid", torch.int32, (B,), dev)
     out = torch.empty((B, K, WIN, WIN), dtype=torch.int32, device=R0.device)
+    if out.numel() == 0:
+        return out
     lib = _build.library()
     err = lib.lpe_walk_scores(
         R0.data_ptr(), oris.data_ptr(), dys.data_ptr(), dxs.data_ptr(),

@@ -21,8 +21,9 @@ Split of the work:
   as the reference's 64-triangle chunk scan.
 
 Both keep the FIRST triangle in index order that reaches a pixel's
-minimum depth (the kernel: a strict ``<`` per triangle; the scan: argmin
-within a chunk, strict ``<`` across chunks), so depth and shade are
+minimum depth (the kernel: the smallest (depth, index) pair, since a
+tile's list comes in no fixed order; the scan: argmin within a chunk,
+strict ``<`` across chunks), so depth and shade are
 bitwise equal between them, on every pixel and on exact depth ties.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
@@ -42,6 +43,8 @@ COEFS = ("ux0", "uy0", "ux1", "uy1", "ux2", "uy2", "iz0", "iz1", "iz2", "area",
          "shade", "live")
 NCOEF = len(COEFS)
 CHUNK = 64  # the reference scan's triangle chunk
+TILE = 16  # K4's pixel tile (csrc/raster_zbuffer.cu)
+BIN_CAP = 256  # triangle indices K4's list of one tile holds (its CAP)
 
 
 def _hypot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -149,22 +152,30 @@ def raster_zbuffer_plain(coefs: torch.Tensor, width: int, height: int
 
 def raster_zbuffer(coefs: torch.Tensor, width: int, height: int
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4: one block per 16 x 16 pixel tile of one pose, one thread per
-    pixel; the block walks the triangles in index order through shared
-    memory and skips those whose grown bbox misses the tile.  coefs (P,
-    Tn, NCOEF) f32 -> (zbuf, sbuf) (P, H, W) f32, bitwise equal to
-    raster_zbuffer_plain."""
+    """K4: the triangles are binned to 16 x 16 pixel tiles; then one block
+    per tile of one pose takes its tile's list (or, past BIN_CAP
+    triangles, every triangle culled in parallel), a warp per triangle
+    over the triangle's pixels, and keeps each pixel's smallest (depth,
+    index).  coefs (P, Tn, NCOEF) f32 -> (zbuf, sbuf) (P, H, W) f32,
+    bitwise equal to raster_zbuffer_plain."""
     if coefs.device.type == "cpu":
         return raster_zbuffer_plain(coefs, width, height)
     if coefs.dim() != 3 or coefs.shape[-1] != NCOEF:
         raise ValueError(f"coefs: expected (P, Tn, {NCOEF}), got {tuple(coefs.shape)}")
     _build.require(coefs, "coefs", torch.float32)
     P, Tn, _ = coefs.shape
-    zbuf = torch.empty((P, height, width), dtype=torch.float32, device=coefs.device)
+    dev = coefs.device
+    zbuf = torch.empty((P, height, width), dtype=torch.float32, device=dev)
     sbuf = torch.empty_like(zbuf)
+    if zbuf.numel() == 0:
+        return zbuf, sbuf
+    tiles = P * -(-height // TILE) * -(-width // TILE)
+    # per tile: a counter and a list of BIN_CAP triangle indices
+    scratch = torch.empty(tiles * (BIN_CAP + 1), dtype=torch.int32, device=dev)
     lib = _build.library()
     err = lib.lpe_raster_zbuffer(coefs.data_ptr(), zbuf.data_ptr(), sbuf.data_ptr(),
-                                 P, Tn, height, width, *_build.device_and_stream(coefs))
+                                 scratch.data_ptr(), P, Tn, height, width,
+                                 *_build.device_and_stream(coefs))
     _build.check(err, "raster_zbuffer")
     _build.launch_counts["raster_zbuffer"] += 1
     return zbuf, sbuf

@@ -69,12 +69,17 @@ def spread_response(B: int, H: int, W: int, T: int) -> Bound:
     return bound(px + 8 * px, px * spread_response_ops_per_px(T))
 
 
-def walk_scores(B: int, K: int, F: int, live_pairs: int, r0_bytes: int) -> Bound:
-    """K3: the operands (B, K, F) oris/dys/dxs int32 and live bool, (B, K)
-    gy0/gx0 int32, (B,) n_valid int32, the distinct response bytes the walk
-    touches (`r0_bytes`), and the (B, K, 16, 16) int32 scores; one add per
-    (walked slot, live feature) pair and placement (`live_pairs` x 256)."""
-    operands = B * K * F * (3 * 4 + 1) + B * K * 2 * 4 + B * 4
+def walk_scores(B: int, K: int, F: int, walked: int, live_pairs: int,
+                r0_bytes: int) -> Bound:
+    """K3 over `walked` of its B * K slots (k < n_valid[b]) with
+    `live_pairs` (walked slot, live feature) pairs.  A slot past n_valid
+    scores 0 whatever its operands hold, so the least work reads operands
+    of the walked slots only: (B,) n_valid int32, each walked slot's gy0
+    and gx0 int32 and its F live flags, and oris/dys/dxs int32 of its live
+    features; then the distinct response bytes the walk touches
+    (`r0_bytes`), and every slot's (16, 16) int32 scores, since the zeros
+    must be written too.  One add per live pair and placement."""
+    operands = B * 4 + walked * (2 * 4 + F) + live_pairs * 3 * 4
     return bound(operands + r0_bytes + B * K * 256 * 4, live_pairs * 256)
 
 

@@ -1,0 +1,106 @@
+"""Odd operand sets that hold kernels K3 (the walk) and K4 (the z-buffer)
+to their plain versions off the main path's shapes.  chip_smoke.py and
+tests/test_torch_cuda.py run the same sets.  Each is made from a fixed
+numpy seed and placed on the device asked for.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+WALK_SHAPE = dict(B=4, C=16, H=480, W=640, K=64, F=128, T=5)
+
+
+def _walk_case(rng, device, B, C, H, W, K, F, T, edges=False):
+    R0 = rng.integers(0, 5, size=(B, C, H, W), dtype=np.uint8)
+    oris = rng.integers(0, C, size=(B, K, F))
+    dys = rng.integers(0, 193, size=(B, K, F))
+    dxs = rng.integers(0, 193, size=(B, K, F))
+    live = rng.random((B, K, F)) < 0.9
+    gy0 = rng.integers(0, max(1, (H - 192) // T - 15), size=(B, K))
+    gx0 = rng.integers(0, max(1, (W - 192) // T - 15), size=(B, K))
+    if edges:
+        # Placements past the frame's bottom and right edges, and (a
+        # row-sharded stripe's negative origin) above its top.
+        gy0 = H // T - rng.integers(0, 24, size=(B, K))
+        gx0 = W // T - rng.integers(0, 24, size=(B, K))
+        gy0[:, :4] = -rng.integers(1, 20, size=(B, 4))
+    n_valid = rng.integers(0, K + 1, size=B)
+    n_valid[0] = K
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    return [torch.as_tensor(R0, device=device), i32(oris), i32(dys), i32(dxs),
+            torch.as_tensor(live, device=device), i32(gy0), i32(gx0), i32(n_valid)], T
+
+
+def walk_cases(device) -> dict[str, tuple[torch.Tensor, tuple, int]]:
+    """name -> (R0, operands, T) for cuda_kernels.walk_scores(R0, *operands,
+    T): frames with n_valid = 0, walked slots whose features are all dead,
+    F = 37 and F = 300 (past one 256-feature round), placements past the
+    frame's edges, B = 1 at K = 512 (the detect's walk), and T = 4."""
+    rng = np.random.default_rng(5)
+    s = WALK_SHAPE
+    out = {}
+    for name, kw in (("n_valid_0", {}), ("dead_slot", {}), ("F37", dict(F=37)),
+                     ("F300", dict(F=300)), ("edges", dict(edges=True)),
+                     ("B1_K512", dict(B=1, K=512)), ("T4", dict(T=4))):
+        ops, T = _walk_case(rng, device, **{**s, **kw})
+        if name == "n_valid_0":
+            ops[7][1::2] = 0
+        if name == "dead_slot":
+            ops[4][0, :3] = False
+            ops[4][2, 1] = False
+        out[name] = (ops[0], tuple(ops[1:]), T)
+    return out
+
+
+def raster_cases(device, params_path: str) -> dict[str, tuple[torch.Tensor, int, int]]:
+    """name -> (coefs, width, height) for raster.raster_zbuffer:
+
+    - dup_rows_tie: the cuboid (1984 padded triangles) at four bank poses
+      in the 256 x 256 viewport, every row appended again with shade
+      1 - shade, so that every covered pixel ties exactly and only the
+      first index may win;
+    - dense_tile: 700 small triangles (a tenth of them repeated rows)
+      over a 24 x 24 pixel corner of a 64 x 48 frame, so that tiles there
+      list more than 256 triangles and take several cull rounds;
+    - viewport_250x170: two poses, a viewport off the 16-pixel tile in
+      both axes;
+    - viewport_1x1: one pixel, on the object's centre."""
+    from ..models.renderer import _pad_triangles
+    from ..models.templates import TemplateBank
+    from ..ops import raster as RA
+    from .scenes import cuboid_mesh
+
+    meta, glob = TemplateBank.read_params_yaml(params_path)
+    tris = torch.from_numpy(_pad_triangles(cuboid_mesh().triangles, 64)).to(device)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    def cuboid(ids, cx, cy):
+        K = f32([[glob.focal_length_x, 0, cx], [0, glob.focal_length_y, cy], [0, 0, 1]])
+        return RA.triangle_coefficients(tris, f32(meta.R[ids]), f32(meta.T[ids]),
+                                        K.expand(len(ids), 3, 3))
+
+    out = {}
+    c = cuboid([0, 300, 700, 1000], 128.0, 128.0)
+    dup = c.clone()
+    shade = RA.COEFS.index("shade")
+    dup[..., shade] = 1.0 - dup[..., shade]
+    out["dup_rows_tie"] = (torch.cat([c, dup], dim=1).contiguous(), 256, 256)
+
+    rng = np.random.default_rng(7)
+    n, fpx = 700, 100.0
+    centre = rng.uniform(0.0, 24.0, size=(n, 1, 2))
+    uv = centre + rng.uniform(-6.0, 6.0, size=(n, 3, 2))
+    z = rng.uniform(0.5, 1.0, size=(n, 1)) + rng.uniform(0.0, 0.05, size=(n, 3))
+    cam = np.concatenate([uv / fpx * z[..., None], z[..., None]], axis=-1)
+    cam[n - n // 10:] = cam[:n // 10]  # repeated rows: exact ties
+    K = f32([[fpx, 0, 0], [0, fpx, 0], [0, 0, 1]])
+    dense = RA.triangle_coefficients(f32(cam), torch.eye(3, device=device)[None],
+                                     f32([[0.0, 0.0, 0.0]]), K[None])
+    dense[:, n - n // 10:, shade] = 1.0 - dense[:, n - n // 10:, shade]
+    out["dense_tile"] = (dense, 64, 48)
+
+    out["viewport_250x170"] = (cuboid([1400, 2000], 125.0, 85.0), 250, 170)
+    out["viewport_1x1"] = (cuboid([2400], 0.5, 0.5), 1, 1)
+    return out

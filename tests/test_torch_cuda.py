@@ -27,6 +27,7 @@ from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
 from linemod_pose_estimation_tpu_torch.ops import features as TF
 from linemod_pose_estimation_tpu_torch.ops import match as TM
 from linemod_pose_estimation_tpu_torch.ops import raster as RA
+from linemod_pose_estimation_tpu_torch.utils import kernel_cases as KC
 from linemod_pose_estimation_tpu_torch.utils import pointcloud as TP
 from linemod_pose_estimation_tpu_torch.utils import scenes as S
 
@@ -122,6 +123,28 @@ def test_walk_kernel_equals_plain(cuda):
     assert torch.equal(CK.walk_scores(*args, 5), CK.walk_scores_plain(*args, 5))
 
 
+@pytest.fixture(scope="module")
+def odd_walks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    return KC.walk_cases(torch.device("cuda"))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["n_valid_0", "dead_slot", "F37", "F300", "edges",
+                                  "B1_K512", "T4"])
+def test_walk_kernel_on_odd_plans(odd_walks, name):
+    """K3 against its plain version on the odd plans chip_smoke holds it
+    to (utils/kernel_cases.py): frames with n_valid = 0, walked slots with
+    every feature dead, F = 37 and 300, placements past the frame's edges,
+    B = 1 at K = 512, T = 4."""
+    R0, ops, T = odd_walks[name]
+    got = CK.walk_scores(R0, *ops, T)
+    assert torch.equal(got, CK.walk_scores_plain(R0, *ops, T))
+    if name == "n_valid_0":
+        assert not bool(got[1].any()) and not bool(got[3].any())
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("batched", [True, False])
 def test_refine_scores_kernel_equals_plain(cuda, batched):
@@ -213,6 +236,31 @@ def test_raster_kernel_equals_plain(cuda):
     zp, sp = RA.raster_zbuffer_plain(coefs, 256, 256)
     assert torch.equal(zk, zp) and torch.equal(sk, sp)
     assert bool(torch.isfinite(zk[:4]).any()) and not bool(torch.isfinite(zk[4]).any())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["dup_rows_tie", "dense_tile", "viewport_250x170",
+                                  "viewport_1x1", "frame_640x480"])
+def test_raster_kernel_on_odd_cases(cuda, name):
+    """K4 against its plain version on chip_smoke's odd cases
+    (utils/kernel_cases.py): exact depth ties that only the first row may
+    win, a tile that more than 256 triangles reach, viewports off the
+    16-pixel tile and of one pixel, and the full 640x480 frame."""
+    if name == "frame_640x480":
+        meta, glob = TemplateBank.read_params_yaml(PARAMS)
+        tris = torch.from_numpy(_pad_triangles(S.cuboid_mesh().triangles, 64)).to(cuda)
+        K = torch.tensor([[glob.focal_length_x, 0, 320.0], [0, glob.focal_length_y, 240.0],
+                          [0, 0, 1]], dtype=torch.float32, device=cuda)[None]
+        coefs = RA.triangle_coefficients(
+            tris, torch.tensor(meta.R[[0]], dtype=torch.float32, device=cuda),
+            torch.tensor(meta.T[[0]], dtype=torch.float32, device=cuda), K)
+        w, h = 640, 480
+    else:
+        coefs, w, h = KC.raster_cases(cuda, PARAMS)[name]
+    zk, sk = RA.raster_zbuffer(coefs, w, h)
+    zp, sp = RA.raster_zbuffer_plain(coefs, w, h)
+    assert torch.equal(zk, zp) and torch.equal(sk, sp)
+    assert bool(torch.isfinite(zk).any())
 
 
 @pytest.mark.requires_cuda

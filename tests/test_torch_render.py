@@ -23,6 +23,7 @@ from linemod_pose_estimation_tpu.models.templates import TemplateBank as JBank
 from linemod_pose_estimation_tpu.ops.pallas_raster import raster_zbuffer_pallas
 from linemod_pose_estimation_tpu_torch import convert
 from linemod_pose_estimation_tpu_torch.models import renderer as TR
+from linemod_pose_estimation_tpu_torch.ops import raster as RA
 from linemod_pose_estimation_tpu_torch.utils.geometry import quat_to_matrix
 from linemod_pose_estimation_tpu_torch.utils.scenes import cuboid_mesh
 
@@ -143,6 +144,31 @@ def test_postprocess_rect(seed):
     t = TR._postprocess(torch.from_numpy(z), torch.from_numpy(s))
     for name, a, b in zip(j._fields, j, t):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+
+
+@pytest.mark.parametrize("rows", [30, None])
+def test_zbuffer_ties_keep_the_first_row(scene, rows):
+    """A coefficient table with every row appended again, the copy's shade
+    1 - shade: every covered pixel ties exactly on depth, and the plain
+    z-buffer keeps the first row's shade on every one (within one 64-row
+    chunk with 30 rows, across chunks with all 1984 — what K4 is held to
+    on the card)."""
+    meta, glob, _ = scene
+    tris = JR._pad_triangles(cuboid_mesh().triangles, 64)[:rows]
+    K = torch.from_numpy(_K(glob, 128, 128))[None]
+    R = torch.tensor(meta.R[[1400]], dtype=torch.float32)
+    T = torch.tensor(meta.T[[1400]], dtype=torch.float32)
+    if rows is not None:  # the first rows sit on one face: centre it
+        c = tris.reshape(-1, 3).mean(0)
+        T = T - torch.tensor(c, dtype=torch.float32)
+    coefs = RA.triangle_coefficients(torch.from_numpy(tris), R, T, K)
+    dup = coefs.clone()
+    dup[..., RA.COEFS.index("shade")] = 1.0 - dup[..., RA.COEFS.index("shade")]
+    z1, s1 = RA.raster_zbuffer_plain(coefs, 128, 128)
+    z2, s2 = RA.raster_zbuffer_plain(torch.cat([coefs, dup], dim=1), 128, 128)
+    hit = torch.isfinite(z1)
+    assert int(hit.sum()) > 20 and bool((s1[hit] != 1.0 - s1[hit]).all())
+    assert torch.equal(z2, z1) and torch.equal(s2, s1)
 
 
 def test_render_batch_equals_single(scene):

@@ -23,10 +23,14 @@ def test_preprocess_kernels_at_the_main_path_shapes():
 
 
 def test_data_dependent_kernels():
-    # K3: 568 walked slots of 128 live features each
-    k3 = RL.walk_scores(32, 128, 128, 568 * 128, 1_000_000)
-    assert k3.ops == 568 * 128 * 256
-    assert k3.bytes == 32 * 128 * 128 * 13 + 32 * 128 * 8 + 32 * 4 + 1_000_000 + 32 * 128 * 1024
+    # K3: 568 walked slots of 4096, 120 live features each; the operands of
+    # the 3528 slots past n_valid are not counted, their zero scores are
+    k3 = RL.walk_scores(32, 128, 128, 568, 568 * 120, 1_000_000)
+    assert k3.ops == 568 * 120 * 256
+    assert k3.bytes == (32 * 4 + 568 * (8 + 128) + 568 * 120 * 12 + 1_000_000
+                        + 32 * 128 * 1024)
+    assert k3.by == "bytes"
+    assert RL.walk_scores(32, 128, 128, 0, 0, 0).bytes == 32 * 4 + 32 * 128 * 1024
     # K4 is operation-bound at the cascade's shapes, K5 at 4096 candidates
     k4 = RL.raster_zbuffer(8, 1984, 256, 256, 21, 10**8)
     assert k4.by == "operations" and k4.ops == 10**8 * RL.RASTER_OPS_PER_PAIR

@@ -20,16 +20,16 @@ N, FMAX, E0, K = 12, 24, 40, 10
 T0, T1 = 5, 8
 
 
-def _case(contiguous_live: bool, seed: int = 0):
+def _case(contiguous_live: bool, seed: int = 0, fmax: int = FMAX):
     rng = np.random.default_rng(seed)
     R0 = rng.integers(0, 5, size=(B, C, H, W)).astype(np.uint8)
-    offs = rng.integers(0, E0 + 4, size=(N, FMAX, 2)).astype(np.int32)  # some > E0
-    oris = rng.integers(0, C, size=(N, FMAX)).astype(np.int32)
+    offs = rng.integers(0, E0 + 4, size=(N, fmax, 2)).astype(np.int32)  # some > E0
+    oris = rng.integers(0, C, size=(N, fmax)).astype(np.int32)
     if contiguous_live:
-        cnt = rng.integers(FMAX // 2, FMAX + 1, size=N).astype(np.int32)
-        live = np.arange(FMAX)[None, :] < cnt[:, None]
+        cnt = rng.integers(fmax // 2, fmax + 1, size=N).astype(np.int32)
+        live = np.arange(fmax)[None, :] < cnt[:, None]
     else:
-        live = rng.random((N, FMAX)) < 0.7
+        live = rng.random((N, fmax)) < 0.7
         cnt = live.sum(1).astype(np.int32)
     size = rng.integers(20, E0, size=(N, 2)).astype(np.int32)
     feats = (offs, oris, live, cnt, size)
@@ -49,12 +49,30 @@ def _case(contiguous_live: bool, seed: int = 0):
     return R0, feats, cand, n_valid
 
 
-@pytest.mark.parametrize("contiguous_live", [True, False])
-@pytest.mark.parametrize("with_n_valid", [True, False])
-def test_walk_equals_reference(contiguous_live, with_n_valid):
-    R0, feats, cand, n_valid = _case(contiguous_live)
-    thr = 30.0
-    nv = n_valid if with_n_valid else None
+def _odd_case(name: str):
+    """The walk plans K3 is held to on the card (utils/kernel_cases.py),
+    built at the matcher's level so that the JAX reference sees them too."""
+    R0, feats, cand, n_valid = _case(False, seed=2, fmax=300 if name == "F300" else FMAX)
+    offs, oris, live, cnt, size = feats
+    tid, cy, cx, sim, valid = cand
+    if name == "n_valid_0":  # frame 1 has no valid candidate: nothing walked
+        valid[1] = False
+        n_valid = valid.sum(1).astype(np.int32)
+    elif name == "dead_slot":  # a walked slot whose template has no live feature
+        live[3] = False
+        cnt[3] = 0
+        tid[0, :3] = 3
+        tid[1, 0] = 3
+    elif name == "corner_E0":  # the bottom-right grid corner, offsets at E0
+        cy[:] = H // 2 // T1 - 1 - (np.arange(K) % 2)
+        cx[:] = W // 2 // T1 - 1 - (np.arange(K) // 2 % 2)
+        offs[:, ::3] = E0
+        offs[:, 1::3, 0] = E0
+        size[:] = 20
+    return R0, feats, cand, n_valid
+
+
+def _walk_both(R0, feats, cand, thr, nv):
     want = JM.refine_candidates_opencv_batched(
         jnp.asarray(R0), JM.LevelFeatures(*(jnp.asarray(a) for a in feats)),
         JM.CoarseMatches(*(jnp.asarray(a) for a in cand)), T1, thr, E0,
@@ -65,7 +83,30 @@ def test_walk_equals_reference(contiguous_live, with_n_valid):
         fine_T=T0, n_valid=None if nv is None else torch.from_numpy(nv))
     for name, a, b in zip(want._fields, got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    return got
+
+
+@pytest.mark.parametrize("contiguous_live", [True, False])
+@pytest.mark.parametrize("with_n_valid", [True, False])
+def test_walk_equals_reference(contiguous_live, with_n_valid):
+    R0, feats, cand, n_valid = _case(contiguous_live)
+    got = _walk_both(R0, feats, cand, 30.0, n_valid if with_n_valid else None)
     assert got.valid.any() and (got.similarity > 0).any()
+
+
+@pytest.mark.parametrize("name", ["n_valid_0", "dead_slot", "F300", "corner_E0"])
+def test_walk_odd_plans_equal_reference(name):
+    """Every Matches field equal to the JAX reference's on the odd walk
+    plans: a frame with n_valid = 0, walked slots whose features are all
+    dead, F = 300 (past one 256-feature round of K3's staging), and
+    candidates at the bottom-right grid corner with offsets at E0."""
+    R0, feats, cand, n_valid = _odd_case(name)
+    got = _walk_both(R0, feats, cand, 30.0, n_valid)
+    assert got.valid.any()
+    if name == "n_valid_0":
+        assert not got.valid[1].any() and not (got.similarity[1] > 0).any()
+    if name == "dead_slot":
+        assert (got.similarity[0, :3] == 0).all() and not got.valid[0, :3].any()
 
 
 def test_walk_scores_plain_skips_dead_slots_and_reads_zero_outside():
