@@ -55,9 +55,15 @@ from csrc/.  Phases, one JSON line each:
      phase 2b's batch its 4096 candidates over the tiled bank, and
      refine_candidates_pallas_batched refines them through K5 (launch
      counts of that run, chain and exhaustive batch times); K5 against
-     its plain version, bitwise, on those candidates and on a set whose
-     windows reach past the frame's bottom-right edge, with CUDA event
-     times; the chain's Matches against the plain chain's and, frame by
+     its plain version, bitwise, on those candidates (timed, with its
+     bound; also at a 40 x 40 window and on a stack whose data pointer is
+     odd), on a set whose windows reach past the frame's bottom-right
+     edge, and on odd cases (utils/kernel_cases.py: windows of 1, 7, 24
+     and 40, F = 37 and 300 with responses up to 255, nf of 0 and above
+     F, W = 643, anchors on the bottom-right edge and reads above and
+     left of the frame, a (C, H, W) input, an odd data pointer with the
+     storage reaching past the tensor and ending with it); the chain's
+     Matches against the plain chain's and, frame by
      frame, against refine_candidates, _slices and _conv; then on the
      cascade golden frames with the untiled bank at threshold 91 the
      exhaustive match_batch, the K5 chain and one make_matcher_fn frame
@@ -150,33 +156,63 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def kernel_times(fn, kernel: str, reps: int = 20) -> dict:
-    """The time of one call of fn()'s kernel, two ways, after a warm-up:
-    `ms`, the kernel's own device time (torch.profiler's CUDA time of the
-    kernels whose name holds `kernel`, over `reps` calls; CUDA events if
-    the trace holds no device time), with `parts` per kernel name where a
-    call launches several, and `call_ms`, the CUDA-event time per call of
-    `reps` calls back to back, which for a kernel shorter than the
-    wrapper's host work is the host's launch rate."""
+def trace_kernel(fn, kernel: str, reps: int) -> tuple[dict, dict]:
+    """One torch.profiler trace of `reps` calls of fn(): ({kernel name:
+    summed device ms}, {kernel name: launches in the trace}) over the device
+    kernels whose name holds `kernel`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    call_ms = cuda_ms(fn, reps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    parts = {}
+    parts, counts = {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if e.device_type == DeviceType.CUDA and kernel in e.key and us > 0:
             short = re.search(r"\w*%s\w*" % re.escape(kernel), e.key).group(0)
-            parts[short] = parts.get(short, 0.0) + us / 1e3 / reps
-    dev_ms = sum(parts.values())
-    out = dict(ms=dev_ms if dev_ms > 0 else call_ms, call_ms=call_ms,
-               ms_from="profiler" if dev_ms > 0 else "cuda_events")
-    if len(parts) > 1:
-        out["parts"] = parts
+            parts[short] = parts.get(short, 0.0) + us / 1e3
+            counts[short] = counts.get(short, 0) + e.count
+    return parts, counts
+
+
+def kernel_times(fn, kernel: str, reps: int = 20, per_call: int = 1) -> dict:
+    """The time of one call of fn()'s kernel, two ways, after a warm-up:
+    `ms`, the kernel's own device time (torch.profiler's CUDA time of the
+    kernels whose name holds `kernel`, over `reps` calls), with `parts` per
+    kernel name where a call launches several, and `call_ms`, the
+    CUDA-event time per call of `reps` calls back to back, which for a
+    kernel shorter than the wrapper's host work is the host's launch rate.
+    A full trace holds `reps * per_call` launches (`per_call`: the kernels
+    one call launches), but a trace can lose records (one card lost one of
+    20 in three traces running), and the summed time over `reps` would then
+    read short.  So the launches the trace holds are counted: a trace with
+    another count is taken again, up to five times, the fullest one is
+    kept, and each kernel's time is its summed time over the launches the
+    trace holds of it, times the launches one call makes of it.  That mean
+    is right whether or not records were lost.  A trace with no launch of
+    the kernel, or with more than the calls made, fails.  `trace_launches`,
+    `traces` and `trace_full` say what was read."""
+    call_ms = cuda_ms(fn, reps)
+    full = reps * per_call
+    best = ({}, {})
+    for traces in range(1, 6):
+        parts, counts = trace_kernel(fn, kernel, reps)
+        if sum(counts.values()) >= sum(best[1].values()):
+            best = (parts, counts)
+        if sum(counts.values()) >= full:
+            break
+    parts, counts = best
+    launches = sum(counts.values())
+    require(0 < launches <= full,
+            f"{kernel}: the trace holds {launches} launches, {reps} calls of "
+            f"{per_call} made {full}")
+    per = {k: parts[k] / counts[k] * max(1, round(counts[k] / reps)) for k in parts}
+    out = dict(ms=sum(per.values()), call_ms=call_ms, trace_launches=launches,
+               traces=traces, trace_full=launches == full)
+    if len(per) > 1:
+        out["parts"] = per
     return out
 
 
@@ -220,7 +256,8 @@ def raster_vs_plain(coefs, w: int, h: int, name: str) -> dict:
 def raster_times(coefs, w: int, h: int) -> dict:
     from linemod_pose_estimation_tpu_torch.ops import raster as RA
 
-    return dict(**kernel_times(lambda: RA.raster_zbuffer(coefs, w, h), "raster_zbuffer"),
+    return dict(**kernel_times(lambda: RA.raster_zbuffer(coefs, w, h), "raster_zbuffer",
+                               per_call=3),
                 plain_ms=cuda_ms(lambda: RA.raster_zbuffer_plain(coefs, w, h), 3),
                 bound=raster_bound(coefs, w, h)._asdict())
 
@@ -571,6 +608,7 @@ def k5_phase(dev, det, bank, rgbs, deps, perf: dict) -> dict:
     from linemod_pose_estimation_tpu_torch.ops import _build
     from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
     from linemod_pose_estimation_tpu_torch.ops import match as M
+    from linemod_pose_estimation_tpu_torch.utils import kernel_cases as KC
 
     cid = bank.class_id
     xm = BatchedMatcher(det, cid, THRESHOLD, B_MAIN, top_k=128, device=dev)
@@ -618,6 +656,23 @@ def k5_phase(dev, det, bank, rgbs, deps, perf: dict) -> dict:
                 **kernel_times(lambda: run(CK.refine_scores), "refine_scores_kernel"),
                 plain_ms=cuda_ms(lambda: run(CK.refine_scores_plain), 3),
                 bound=window_bound(R0, pl, 24)._asdict())
+    # The chain's plan at a window past one block's threads, and on a
+    # response stack one byte into its storage (an odd data pointer).
+    R0_odd = torch.empty(R0.numel() + 8, dtype=torch.uint8, device=dev)[1:R0.numel() + 1]
+    R0_odd = R0_odd.view(R0.shape).copy_(R0)
+    for name, Rx, w in ((f"chain_K{K}_window40", R0, 40), (f"chain_K{K}_odd_ptr", R0_odd, 24)):
+        run = lambda f: f(Rx, *plan.operands(), window=w, frame_idx=plan.frame_idx)
+        err = max_abs_err(run(CK.refine_scores), run(CK.refine_scores_plain))
+        require(err == 0, f"K5 {name} differs from its plain version")
+        perf["refine_scores"][name] = dict(max_abs_err=err, data_ptr_mod_4=Rx.data_ptr() % 4)
+    del R0_odd
+    odd = KC.window_cases(dev)
+    for name, (Ro, ops, w, fr) in odd.items():
+        err = max_abs_err(CK.refine_scores(Ro, *ops, window=w, frame_idx=fr),
+                          CK.refine_scores_plain(Ro, *ops, window=w, frame_idx=fr))
+        require(err == 0, f"K5 {name} differs from its plain version")
+    perf["refine_scores"]["odd_cases"] = dict(max_abs_err=0, cases=list(odd))
+    del odd
     for b in range(B_MAIN):
         cb = M.CoarseMatches(*(a[b] for a in cands))
         want = M.Matches(*(a[b] for a in m5))

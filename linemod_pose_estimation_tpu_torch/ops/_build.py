@@ -56,8 +56,8 @@ _SIGNATURES = {
     # (coefs, zbuf, sbuf, scratch, P, Tn, H, W, device, stream)
     "lpe_raster_zbuffer": (_P,) * 4 + (_I,) * 5 + (_P,),
     # (R, oris, dys, dxs, nf, anchor_y, anchor_x, frame, out,
-    #  C, H, W, K, F, window, device, stream)
-    "lpe_refine_scores": (_P,) * 9 + (_I,) * 7 + (_P,),
+    #  B, C, H, W, K, F, window, words_ok, device, stream)
+    "lpe_refine_scores": (_P,) * 9 + (_I,) * 9 + (_P,),
 }
 
 _lib = None

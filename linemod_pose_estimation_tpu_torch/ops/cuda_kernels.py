@@ -203,22 +203,54 @@ def refine_scores_plain(R, oris, dys, dxs, nf, anchor_y, anchor_x,
                        anchor_x[:, None] + dxs, slot[None, :] < nf[:, None], window)
 
 
+# K5 adds a word-alignment residual of up to 3 to a byte offset in a frame
+# and keeps the sum in int32.
+K5_MAX_FRAME_BYTES = (1 << 31) - 4
+
+
+def words_readable(R: torch.Tensor) -> bool:
+    """Whether R's storage covers the aligned 32-bit words around R's first
+    and last byte, so that a kernel may read any word that holds a byte of
+    R (K5 reads bytes only when it does not)."""
+    storage = R.untyped_storage()
+    lo = storage.data_ptr()
+    first = R.data_ptr()
+    end = first + R.numel() * R.element_size()
+    return first // 4 * 4 >= lo and -(-end // 4) * 4 <= lo + storage.nbytes()
+
+
+def check_window_frame(C: int, H: int, W: int, window: int) -> None:
+    """Raise for a (C, H, W) frame or a window that K5 does not take."""
+    if window < 1:
+        raise ValueError(f"window={window}: K5 needs at least one cell")
+    if C * H * W > K5_MAX_FRAME_BYTES:
+        raise ValueError(f"R: a frame of {C * H * W} bytes; K5 indexes one in int32")
+
+
 def refine_scores(R, oris, dys, dxs, nf, anchor_y, anchor_x,
                   window: int = 24, frame_idx=None) -> torch.Tensor:
-    """K5: raw window scores (K, window, window) int32 — one block per
-    candidate, one thread per window cell.  Operands: R (C, H, W) or (B,
-    C, H, W) u8 with frame_idx (K,) int32 selecting each candidate's frame
-    (None: frame 0); oris/dys/dxs (K, F) int32 with the offsets already
-    clipped to [0, E0]; nf/anchor_y/anchor_x (K,) int32, anchors >= 0.
-    Live feature slots must sit at [0, nf) (the refiners compact them)."""
+    """K5: raw window scores (K, window, window) int32, for any window >= 1.
+    What bounds it is the gather between L2 and the SMs, not device
+    memory: each feature reads `window` rows of `window` bytes at an
+    arbitrary byte offset, each row in its own cache line, far more rows
+    than L1 keeps.  So eight lanes share a row segment of 28 cells: each
+    loads one aligned 32-bit word, takes its neighbour's by shuffle and
+    shifts the pair by the misalignment (one L1 pass and one or two L2
+    sectors fetch a whole row), and a block (one per candidate, and per window tile past 512 threads) takes 8
+    staged features a step with no mask when all of them read inside the
+    frame, else a walk that masks byte by byte.  Operands: R (C, H, W) or
+    (B, C, H, W) u8, any W and any data pointer, C * H * W below 2^31, with
+    frame_idx (K,) int32 selecting each candidate's frame (None: frame 0);
+    oris/dys/dxs (K, F) int32 (the refiners clip the offsets to [0, E0]);
+    nf/anchor_y/anchor_x (K,) int32.  Live feature slots must sit at [0,
+    nf) (the refiners compact them); nf above F counts as F."""
     if R.device.type == "cpu":
         return refine_scores_plain(R, oris, dys, dxs, nf, anchor_y, anchor_x,
                                    window, frame_idx)
     K, Fmax = oris.shape
     R, frame_idx = _as_batched(R, frame_idx, K)
     B, C, H, W = R.shape
-    if not 1 <= window <= 32:
-        raise ValueError(f"window={window}: K5 runs one thread per cell, at most 32 x 32")
+    check_window_frame(C, H, W, window)
     dev = R.device
     _build.require(R, "R", torch.uint8)
     oris, dys, dxs = (a.contiguous() for a in (oris, dys, dxs))
@@ -236,8 +268,8 @@ def refine_scores(R, oris, dys, dxs, nf, anchor_y, anchor_x,
     err = lib.lpe_refine_scores(
         R.data_ptr(), oris.data_ptr(), dys.data_ptr(), dxs.data_ptr(),
         nf.data_ptr(), anchor_y.data_ptr(), anchor_x.data_ptr(),
-        frame_idx.data_ptr(), out.data_ptr(), C, H, W, K, Fmax, window,
-        *_build.device_and_stream(R),
+        frame_idx.data_ptr(), out.data_ptr(), B, C, H, W, K, Fmax, window,
+        int(words_readable(R)), *_build.device_and_stream(R),
     )
     _build.check(err, "refine_scores")
     _build.launch_counts["refine_scores"] += 1

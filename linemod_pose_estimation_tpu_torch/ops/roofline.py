@@ -99,10 +99,12 @@ def raster_zbuffer(P: int, Tn: int, H: int, W: int, ncoef: int, pairs: int) -> B
 
 
 def refine_scores(K: int, F: int, window: int, live_features: int, r_bytes: int) -> Bound:
-    """K5: the operands (K, F) oris/dys/dxs int32 and (K,) nf/anchors/frame
-    int32, the distinct response bytes the windows touch (`r_bytes`), and
-    the (K, window, window) int32 scores; one add per live feature slot
-    and window cell."""
-    operands = K * F * 3 * 4 + K * 4 * 4
+    """K5 over `live_features` (candidate, slot f < nf[k]) pairs.  A slot
+    past nf adds nothing whatever it holds, so the least work reads
+    oris/dys/dxs int32 of the live slots only, and (K,) nf/anchors/frame
+    int32; then the distinct response bytes the windows touch (`r_bytes`),
+    and the (K, window, window) int32 scores; one add per live feature
+    slot and window cell."""
+    operands = live_features * 3 * 4 + K * 4 * 4
     return bound(operands + r_bytes + K * window * window * 4,
                  live_features * window * window)

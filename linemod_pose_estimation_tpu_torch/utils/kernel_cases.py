@@ -1,7 +1,7 @@
-"""Odd operand sets that hold kernels K3 (the walk) and K4 (the z-buffer)
-to their plain versions off the main path's shapes.  chip_smoke.py and
-tests/test_torch_cuda.py run the same sets.  Each is made from a fixed
-numpy seed and placed on the device asked for.
+"""Odd operand sets that hold kernels K3 (the walk), K4 (the z-buffer) and
+K5 (the window scores) to their plain versions off the main path's
+shapes.  chip_smoke.py and tests/test_torch_cuda.py run the same sets.
+Each is made from a fixed numpy seed and placed on the device asked for.
 """
 
 from __future__ import annotations
@@ -51,6 +51,89 @@ def walk_cases(device) -> dict[str, tuple[torch.Tensor, tuple, int]]:
             ops[4][0, :3] = False
             ops[4][2, 1] = False
         out[name] = (ops[0], tuple(ops[1:]), T)
+    return out
+
+
+WINDOW_CASES = ("window_1", "window_7", "window_24", "window_40", "F37", "F300_u8",
+                "nf_0_and_past_F", "W643", "edge", "top_left", "chw_input",
+                "odd_ptr", "odd_ptr_tight")
+
+
+def _window_case(rng, device, B=2, C=8, H=120, W=160, K=6, F=20, window=24, vmax=5,
+                 E=40, place="mixed", batched=True, storage="own"):
+    """(R, (oris, dys, dxs, nf, anchor_y, anchor_x), window, frame_idx)."""
+    n = B * C * H * W
+    vals = rng.integers(0, vmax, size=n, dtype=np.uint8)
+    if storage == "own":
+        R = torch.as_tensor(vals, device=device)
+    else:
+        # One byte into a storage: the data pointer is odd.  "tight": the
+        # storage ends with the tensor, off a multiple of 4, so the aligned
+        # word around the last byte reaches past it.
+        assert storage == "padded" or (n + 1) % 4
+        base = torch.zeros(n + (8 if storage == "padded" else 1), dtype=torch.uint8,
+                           device=device)
+        R = base[1:n + 1]
+        R.copy_(torch.as_tensor(vals, device=device))
+        assert R.data_ptr() % 2 == 1
+    R = R.view(B, C, H, W)
+    oris = rng.integers(0, C, size=(K, F))
+    dys = rng.integers(0, E + 1, size=(K, F))
+    dxs = rng.integers(0, E + 1, size=(K, F))
+    nf = rng.integers(1, F + 1, size=K)
+    nf[0] = F
+    # Half the candidates keep every read inside the frame (where the frame
+    # has room), the others lie anywhere, windows over the edges included.
+    ay, ax = rng.integers(0, H, size=K), rng.integers(0, W, size=K)
+    ay[::2] = rng.integers(0, max(1, H - E - window), size=len(ay[::2]))
+    ax[::2] = rng.integers(0, max(1, W - E - window), size=len(ax[::2]))
+    if place == "edge":  # the bottom-right corner, the last frame's last byte
+        ay, ax = H - 1 - np.arange(K) % 3, W - 1 - np.arange(K) % 5
+        dys[:, 0] = dxs[:, 0] = 0
+        oris[0, 0] = C - 1
+    if place == "top_left":  # reads above and left of the frame
+        ay, ax = -rng.integers(0, 12, size=K), -rng.integers(0, 12, size=K)
+        dys[:, ::3] -= 9
+        dxs[:, ::3] -= 9
+    frame = rng.integers(0, B, size=K)
+    frame[0] = B - 1
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    ops = (i32(oris), i32(dys), i32(dxs), i32(nf), i32(ay), i32(ax))
+    if not batched:
+        return R[0], ops, window, None
+    return R, ops, window, i32(frame)
+
+
+def window_cases(device) -> dict[str, tuple]:
+    """name -> (R, operands, window, frame_idx) for cuda_kernels.
+    refine_scores(R, *operands, window=window, frame_idx=frame_idx):
+    windows of 1, 7, 24 and 40 cells (40: two row segments, and past one
+    block's threads); F = 37 and F = 300 (past one staging round) with
+    responses up to 255; nf of 0 and above F; W = 643; anchors on the
+    bottom-right edge; reads above and left of the frame; a (C, H, W)
+    input without frame_idx; and an R one byte into its storage, with the
+    storage reaching past it and ending with it."""
+    rng = np.random.default_rng(11)
+    spec = dict(
+        window_1=dict(window=1), window_7=dict(window=7), window_24=dict(window=24),
+        window_40=dict(window=40, K=4), F37=dict(F=37),
+        F300_u8=dict(F=300, K=4, vmax=256), nf_0_and_past_F=dict(),
+        W643=dict(H=70, W=643, C=3), edge=dict(place="edge"),
+        top_left=dict(place="top_left"), chw_input=dict(batched=False),
+        odd_ptr=dict(storage="padded", H=71, W=83),
+        odd_ptr_tight=dict(storage="tight", B=1, C=3, H=21, W=23, window=7, E=8),
+    )
+    assert tuple(spec) == WINDOW_CASES
+    out = {}
+    for name, kw in spec.items():
+        case = _window_case(rng, device, **kw)
+        if name == "F300_u8":  # a sum past 16 bits: 300 reads of 255
+            case[0][:, 0] = 255
+            case[1][0][0] = 0
+        if name == "nf_0_and_past_F":
+            case[1][3][1] = 0
+            case[1][3][2] = case[1][0].shape[1] + 5
+        out[name] = case
     return out
 
 

@@ -171,6 +171,44 @@ def test_refine_scores_kernel_equals_plain(cuda, batched):
     assert torch.equal(got, want) and int(got.max()) > 0
 
 
+@pytest.fixture(scope="module")
+def odd_windows():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    return KC.window_cases(torch.device("cuda"))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", KC.WINDOW_CASES)
+def test_refine_scores_kernel_on_odd_cases(odd_windows, name):
+    """K5 against its plain version on the odd cases chip_smoke holds it
+    to (utils/kernel_cases.py): windows of 1, 7, 24 and 40, F = 37 and 300
+    with responses up to 255, nf of 0 and above F, W = 643, windows over
+    every edge of the frame, a (C, H, W) input, odd data pointers."""
+    R, ops, window, frame = odd_windows[name]
+    got = CK.refine_scores(R, *ops, window=window, frame_idx=frame)
+    assert torch.equal(got, CK.refine_scores_plain(R, *ops, window=window, frame_idx=frame))
+    assert int(got.max()) > 0
+
+
+@pytest.mark.requires_cuda
+def test_refine_scores_kernel_window_40_at_full_width(cuda):
+    """K5 at a 40 x 40 window on a 480x640, C=16 batch, on an odd data
+    pointer: two row segments a window row, two tiles a candidate."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, K, F, C, H, W = 2, 256, 128, 16, 480, 640
+    ri = lambda lo, hi, shape: torch.randint(lo, hi, shape, device=cuda, generator=g,
+                                             dtype=torch.int32)
+    n = B * C * H * W
+    R = torch.empty(n + 8, dtype=torch.uint8, device=cuda)[1:n + 1].view(B, C, H, W)
+    R.copy_(ri(0, 5, (B, C, H, W)))
+    args = (ri(0, C, (K, F)), ri(0, 193, (K, F)), ri(0, 193, (K, F)), ri(0, F + 1, (K,)),
+            ri(0, H, (K,)), ri(0, W, (K,)))
+    fr = ri(0, B, (K,))
+    got = CK.refine_scores(R, *args, window=40, frame_idx=fr)
+    assert torch.equal(got, CK.refine_scores_plain(R, *args, window=40, frame_idx=fr))
+
+
 @pytest.mark.requires_cuda
 def test_batched_matcher_kernels_equal_plain(cuda):
     td = Detector.read(BANK)

@@ -106,3 +106,39 @@ def test_resolve_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device("cuda:0")
+
+
+@pytest.mark.parametrize("lost", [0, 1, 10])
+def test_kernel_times_reads_the_mean_of_the_launches_a_trace_holds(monkeypatch, lost):
+    """chip_smoke.kernel_times on traces that lost `lost` of a kernel's 20
+    records: each kernel's time is its summed time over the launches the
+    trace holds, so it reads the same as from a full trace, and the count is
+    reported."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    taken = []
+
+    def trace(fn, kernel, reps):
+        taken.append(reps)
+        return ({"a_kernel": 0.5 * (reps - lost), "b_kernel": 0.25 * 2 * reps},
+                {"a_kernel": reps - lost, "b_kernel": 2 * reps})
+
+    monkeypatch.setattr(chip_smoke, "trace_kernel", trace)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps: 1.5)
+    out = chip_smoke.kernel_times(lambda: None, "kernel", reps=20, per_call=3)
+    assert out["ms"] == 0.5 + 2 * 0.25
+    assert out["parts"] == {"a_kernel": 0.5, "b_kernel": 0.5}
+    assert out["trace_launches"] == 60 - lost and out["trace_full"] == (lost == 0)
+    assert out["traces"] == len(taken) == (1 if lost == 0 else 5)
+    assert out["call_ms"] == 1.5
+    monkeypatch.setattr(chip_smoke, "trace_kernel", lambda fn, kernel, reps: ({}, {}))
+    with pytest.raises(AssertionError, match="holds 0 launches"):
+        chip_smoke.kernel_times(lambda: None, "kernel")
+    monkeypatch.setattr(chip_smoke, "trace_kernel",
+                        lambda fn, kernel, reps: ({"a_kernel": 1.0}, {"a_kernel": reps + 1}))
+    with pytest.raises(AssertionError, match="holds 21 launches"):
+        chip_smoke.kernel_times(lambda: None, "kernel")

@@ -36,7 +36,9 @@ def test_data_dependent_kernels():
     assert k4.by == "operations" and k4.ops == 10**8 * RL.RASTER_OPS_PER_PAIR
     k5 = RL.refine_scores(4096, 128, 24, 4096 * 100, 2_000_000)
     assert k5.ops == 4096 * 100 * 576
-    assert k5.bytes == 4096 * 128 * 12 + 4096 * 16 + 2_000_000 + 4096 * 576 * 4
+    # operands of the live slots only: slots past nf[k] are never read
+    assert k5.bytes == 4096 * 100 * 12 + 4096 * 16 + 2_000_000 + 4096 * 576 * 4
+    assert RL.refine_scores(4096, 128, 24, 0, 0).bytes == 4096 * 16 + 4096 * 576 * 4
 
 
 def test_bound_takes_the_larger_time():

@@ -23,6 +23,7 @@ from linemod_pose_estimation_tpu.ops import pallas_kernels as PK
 from linemod_pose_estimation_tpu_torch import convert
 from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
 from linemod_pose_estimation_tpu_torch.ops import match as TM
+from linemod_pose_estimation_tpu_torch.utils import kernel_cases as KC
 
 B, C, H, W = 2, 8, 96, 128
 N, FMAX, E0, K = 10, 32, 40, 6
@@ -105,6 +106,41 @@ def test_refine_scores_plain_equals_tpu_kernel(name):
     np.testing.assert_array_equal(got1.numpy(), np.asarray(want1))
 
 
+def test_refine_scores_plain_equals_tpu_kernel_at_window_40():
+    """A window past the 32 x 32 cells that K5's first port stopped at:
+    the reference takes any static window, and so does the port."""
+    R0, feats, cand = _case("edge")
+    _, f0, c = _port(R0, feats, cand)
+    plan = TM.window_plan(R0.shape, f0, c, T1, E0, T0)
+    want = PK.refine_scores_pallas(jnp.asarray(R0),
+                                   *(jnp.asarray(a.numpy()) for a in plan.operands()),
+                                   E0=E0, window=40, interpret=True,
+                                   frame_idx=jnp.asarray(plan.frame_idx.numpy()))
+    got = CK.refine_scores(torch.from_numpy(R0), *plan.operands(), window=40,
+                           frame_idx=plan.frame_idx)
+    assert got.shape == (B * K, 40, 40)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got.max()) > 0
+
+
+def _per_cell_scores(R, oris, dys, dxs, nf, ay, ax, window, frame=None):
+    """K5's definition, one cell and one feature at a time (numpy)."""
+    if R.ndim == 3:
+        R = R[None]
+    Kq, Fq = oris.shape
+    Hq, Wq = R.shape[-2:]
+    frame = np.zeros(Kq, np.int64) if frame is None else frame
+    want = np.zeros((Kq, window, window), np.int32)
+    for k in range(Kq):
+        for wy in range(window):
+            for wx in range(window):
+                for f in range(min(nf[k], Fq)):
+                    y, x = ay[k] + dys[k, f] + wy, ax[k] + dxs[k, f] + wx
+                    if 0 <= y < Hq and 0 <= x < Wq:
+                        want[k, wy, wx] += R[frame[k], oris[k, f], y, x]
+    return want
+
+
 def test_refine_scores_plain_reads_zero_past_the_frame():
     """K5's plain version against a per-cell loop, with anchors at the
     bottom-right corner and slots past nf ignored."""
@@ -120,15 +156,47 @@ def test_refine_scores_plain_reads_zero_past_the_frame():
     fr = np.array([1, 0, 1, 0], np.int32)
     got = CK.refine_scores(*(torch.from_numpy(a) for a in (R, oris, dys, dxs, nf, ay, ax)),
                            window=win, frame_idx=torch.from_numpy(fr)).numpy()
-    want = np.zeros_like(got)
-    for k in range(Kq):
-        for wy in range(win):
-            for wx in range(win):
-                for f in range(nf[k]):
-                    y, x = ay[k] + dys[k, f] + wy, ax[k] + dxs[k, f] + wx
-                    if y < Hq and x < Wq:
-                        want[k, wy, wx] += R[fr[k], oris[k, f], y, x]
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _per_cell_scores(R, oris, dys, dxs, nf, ay, ax, win, fr))
+
+
+@pytest.mark.parametrize("name", KC.WINDOW_CASES)
+def test_refine_scores_plain_on_odd_cases(name):
+    """K5's plain version against the per-cell loop on the odd cases the
+    kernel is held to on a card (utils/kernel_cases.py)."""
+    R, ops, window, frame = KC.window_cases("cpu")[name]
+    got = CK.refine_scores(R, *ops, window=window, frame_idx=frame)
+    assert got.shape == (ops[0].shape[0], window, window)
+    want = _per_cell_scores(R.numpy(), *(a.numpy() for a in ops), window,
+                            None if frame is None else frame.numpy())
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got.max()) > 0
+    if name == "F300_u8":
+        assert int(got.max()) > 65535  # past a 16-bit partial sum
+    if name.startswith("odd_ptr"):
+        assert R.data_ptr() % 2 == 1
+        assert CK.words_readable(R) == (name == "odd_ptr")
+
+
+def test_refine_scores_int32_guard_and_window_cap():
+    """The wrapper refuses a frame it cannot index in int32 and takes any
+    window >= 1 (meta tensors: no 2 GB frame is made; with no card the
+    accepted call ends at the operand check, past the guard)."""
+    meta = lambda shape, dtype=torch.int32: torch.empty(shape, dtype=dtype, device="meta")
+    ops = (meta((4, 8)), meta((4, 8)), meta((4, 8)), meta((4,)), meta((4,)), meta((4,)))
+    big = meta((1, 2, 1 << 15, 1 << 15), torch.uint8)  # C * H * W = 2^31
+    with pytest.raises(ValueError, match="indexes one in int32"):
+        CK.refine_scores(big, *ops, window=24)
+    CK.check_window_frame(16, 480, 640, 40)
+    CK.check_window_frame(1, CK.K5_MAX_FRAME_BYTES, 1, 1)
+    with pytest.raises(ValueError, match="int32"):
+        CK.check_window_frame(1, CK.K5_MAX_FRAME_BYTES + 1, 1, 24)
+    with pytest.raises(ValueError, match="int32"):
+        CK.check_window_frame(2, 1 << 15, 1 << 15, 24)
+    with pytest.raises(ValueError, match="window=0"):
+        CK.check_window_frame(16, 480, 640, 0)
+    small = meta((2, 8, 96, 128), torch.uint8)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        CK.refine_scores(small, *ops, window=40)
 
 
 @pytest.mark.parametrize("name", CASES)

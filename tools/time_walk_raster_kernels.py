@@ -83,7 +83,7 @@ def main() -> int:
         coefs = RA.triangle_coefficients(tris, f32(meta.R[sel]), f32(meta.T[sel]),
                                          K.expand(len(sel), 3, 3))
         k4[name] = kernel_times(lambda c=coefs: RA.raster_zbuffer(c, 256, 256),
-                                "raster_zbuffer", args.reps)
+                                "raster_zbuffer", args.reps, 3)
 
     # detect on cascade golden frame 0, and the operands it passes K3 and K4.
     with np.load(os.path.join(repo, "tests", "data", "torch_cascade_golden.npz")) as z:
@@ -95,7 +95,7 @@ def main() -> int:
     detect()  # warm-up
     got = first_calls([(CK, "walk_scores"), (RA, "raster_zbuffer")], detect)
     k4["detect_captured"] = kernel_times(lambda: RA.raster_zbuffer(*got["raster_zbuffer"]),
-                                         "raster_zbuffer", args.reps)
+                                         "raster_zbuffer", args.reps, 3)
     k3 = {"detect_B1": kernel_times(lambda: CK.walk_scores(*got["walk_scores"]),
                                     "walk_scores", args.reps)}
     out["detect_ms"] = timed(detect, 10)
