@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Drives Detector.read -> BatchedMatcher(prune_mode="pooled") -> Matches
-on the committed RGB-D bank at full width (480x640 frames, 16 response
+(and every other ported path: phases 6-9) on the committed RGB-D bank at
+full width (480x640 frames, 16 response
 channels, Fmax 128), after building the hand-written CUDA kernels K1
 (ColorGradient quantizer), K2 (spread + response) and K3 (local walk)
 from csrc/.  Phases, one JSON line each:
@@ -79,6 +80,22 @@ from csrc/.  Phases, one JSON line each:
      the merged batch time and the split time (the two single-class
      batches, as the reference bench times its alternator).
 
+  9. the per-frame-cap prune modes: on the cascade golden frames with the
+     untiled bank, BatchedMatcher(prune=True) in the `positions` mode (its
+     defaults, a fine_pos_cap that the fine survivors overflow, a
+     prune_pos_cap that the coarse survivors overflow), in the `two_axis`
+     mode, and the default-mode MultiClassBatchedMatcher against the JAX
+     reference (Matches, PrunePlan, FinePlan;
+     tests/data/torch_prune_golden.npz); then B=32 (phase 8's batch: 28
+     scenes and the 4 cascade frames) over the bank tiled to 10,624: the
+     three `positions` settings, each kernel path against plain path
+     (Matches and plans), its valid matches against the pooled matcher's
+     on the same batch, the plans' rows of the golden frames against the
+     golden, launch counts and batch times by CUDA events; `two_axis` at
+     its defaults with its overflow flag; the default-mode two-object
+     matcher against phase 8's pooled result per class; and the RGB-only
+     bank (C = 8: K1 x2, K2 x2) tiled to 10,624 through the pooled path.
+
 Then a kernels summary line (per kernel: launches on its path, the
 summed time, plain time and bound of those launches at their shapes,
 what bounds it, the share of the bound, and library_ms null: no single
@@ -91,6 +108,7 @@ card it exits 2 before doing anything.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
@@ -108,6 +126,8 @@ PARAMS = os.path.join(REPO, "data", "boxNew_rgbd_params.yml.gz")
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden.npz")
 CASCADE_GOLDEN = os.path.join(REPO, "tests", "data", "torch_cascade_golden.npz")
 WINDOW_GOLDEN = os.path.join(REPO, "tests", "data", "torch_window_golden.npz")
+PRUNE_GOLDEN = os.path.join(REPO, "tests", "data", "torch_prune_golden.npz")
+RGB_BANK = os.path.join(REPO, "data", "boxNew_full_templates.yml.gz")
 # Degrees, mm between the card's poses and the reference's.  The card in
 # full f32 lands within 4e-5 deg / 1e-4 mm ("NVIDIA H100 80GB HBM3,
 # 700.00 W"); the TF32 control below must land outside.  The CPU tests'
@@ -589,6 +609,32 @@ def timed(fn, reps: int = 1) -> list[float]:
     return out
 
 
+def event_times(fn, reps: int = 3) -> list[float]:
+    """Device ms of `reps` calls of fn(), each between its own pair of CUDA
+    events (the caller has warmed fn up)."""
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop))
+    return out
+
+
+def valid_set(m) -> collections.Counter:
+    """The valid matches of a Matches record as a multiset of (frame,
+    template, x, y, similarity): candidates of neighbouring cells may walk
+    to one match, so an entry can count more than once."""
+    v = m.valid.cpu().numpy()
+    frame = np.broadcast_to(np.arange(v.shape[0])[:, None], v.shape)[v]
+    cols = [a.cpu().numpy()[v] for a in (m.template_id, m.x, m.y, m.similarity)]
+    return collections.Counter(zip(frame.tolist(), *(c.tolist() for c in cols)))
+
+
 def golden_frames(dev: torch.device):
     with np.load(CASCADE_GOLDEN) as z:
         return torch.from_numpy(z["rgb"]).to(dev), torch.from_numpy(z["depth_mm"]).to(dev)
@@ -712,8 +758,9 @@ def k5_phase(dev, det, bank, rgbs, deps, perf: dict) -> dict:
 
 
 def two_object_phase(dev, bank, rgbs, deps) -> dict:
-    """Phase 8 (the two-object path); returns the launch counts of the
-    B=32 merged run."""
+    """Phase 8 (the two-object path); returns what phase 9 takes up: the
+    two-class detector over the tiled banks, the mixed batch, and the
+    merged pooled Matches per class with their batch times."""
     from linemod_pose_estimation_tpu_torch.models.detector import Detector
     from linemod_pose_estimation_tpu_torch.models.serving import (
         BatchedMatcher, MultiClassBatchedMatcher, slice_settings)
@@ -780,13 +827,8 @@ def two_object_phase(dev, bank, rgbs, deps) -> dict:
     split()  # warm-up
     split_repeats = timed(split, 3)
 
-    def vset(m):
-        v = m.valid.cpu().numpy()
-        cols = [a.cpu().numpy()[v] for a in (m.template_id, m.x, m.y, m.similarity)]
-        return set(zip(*(c.tolist() for c in cols)))
-
     for c, single in zip((cid, cid2), split()):
-        require(vset(merged[c]) == vset(single),
+        require(valid_set(merged[c]) == valid_set(single),
                 f"two-object {c}: merged valid matches != the single-class batch's")
     emit("two_object_batch", batch=B_MAIN, templates=int(mk.feats1.count.numel()),
          thresholds=thrs, equal_kernel_vs_plain=True, merged_equals_split=True,
@@ -795,7 +837,189 @@ def two_object_phase(dev, bank, rgbs, deps) -> dict:
          merged_batch_ms=merged_ms, merged_batch_ms_repeats=merged_repeats,
          split_batch_ms_repeats=split_repeats,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
-    return launches
+    return dict(detector=td, class_ids=(cid, cid2), thresholds=thrs, top_k=top_k,
+                rgbs=rgbs, deps=deps, pooled=merged, pooled_ms=merged_repeats)
+
+
+def prune_phase(dev, det, bank, two: dict) -> dict:
+    """Phase 9 (the positions and two_axis modes, the default-mode
+    two-object matcher, the RGB-only bank).  `det` holds the tiled bank,
+    `bank` is the untiled one, `two` what two_object_phase returned.
+    Returns the launch counts of the B=32 `positions` run at its defaults."""
+    from linemod_pose_estimation_tpu_torch.models.detector import Detector
+    from linemod_pose_estimation_tpu_torch.models.serving import (
+        BatchedMatcher, MultiClassBatchedMatcher, slice_settings)
+    from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
+    from linemod_pose_estimation_tpu_torch.ops import _build
+
+    with np.load(PRUNE_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    cid = bank.class_id
+    thr, top_k = float(gold["threshold"]), int(gold["top_k"])
+    settings = {"pos": {}, "fof": dict(fine_pos_cap=int(gold["fine_overflow_cap"])),
+                "cof": dict(prune_pos_cap=int(gold["coarse_overflow_cap"])),
+                "two": dict(prune_mode="two_axis")}
+
+    # -- the golden: the untiled bank on the cascade frames ------------------
+    g_rgbs, g_deps = golden_frames(dev)
+    gB = g_rgbs.shape[0]
+    gd = Detector(bank.params, device=dev)
+    gd.attach_bank(bank)
+    valid = {}
+    for key, kw in settings.items():
+        gm = BatchedMatcher(gd, cid, thr, gB, top_k=top_k, prune=True, device=dev, **kw)
+        out = gm.match_batch(g_rgbs, g_deps)
+        check_golden(gold, f"{key}_m_", out, f"prune golden {key} Matches")
+        check_golden(gold, f"{key}_pp_", gm.last_prune, f"prune golden {key} PrunePlan")
+        if key != "two":
+            check_golden(gold, f"{key}_fp_", gm.last_fine, f"prune golden {key} FinePlan")
+        valid[key] = int(out.valid.sum())
+        del gm
+    cid2 = two["class_ids"][1]
+    gd.attach_bank(TemplateBank(cid2, bank.params, bank.templates, f_cap=bank.f_cap))
+    gmc = MultiClassBatchedMatcher(gd, [cid, cid2], two["thresholds"], gB, top_k=top_k,
+                                   device=dev)
+    out = gmc.match_batch(g_rgbs, g_deps)
+    for i, c in enumerate((cid, cid2)):
+        check_golden(gold, f"mc{i}_m_", out[c], f"prune golden two-object class {c}")
+    check_golden(gold, "mc_pp_", gmc.last_prune, "prune golden two-object PrunePlan")
+    valid["two_object"] = [int(out[c].valid.sum()) for c in (cid, cid2)]
+    emit("prune_golden", frames=gB, templates=bank.num_templates, equal=True,
+         valid_matches=valid)
+    del gmc, gd
+
+    # -- B=32 over the tiled bank: the pooled matcher on the same batch -------
+    rgbs, deps = two["rgbs"], two["deps"]
+    pm = BatchedMatcher(det, cid, thr, B_MAIN, device=dev, **slice_settings(B_MAIN))
+    m_pool = pm.match_batch(rgbs, deps)  # warm-up too
+    pooled_ms = event_times(lambda: pm.match_batch(rgbs, deps))
+    want = valid_set(m_pool)
+    require(want.total() > 0, "the mixed batch has no valid match at the threshold")
+    del pm
+
+    def golden_rows(record, prefix, what):
+        # A frame's survivors do not depend on the batch's other frames,
+        # nor on the bank's tiling (the copies tie, dead rows never win).
+        for name in ("p_idx", "p_keep", "m_survivors"):
+            require(np.array_equal(getattr(record, name)[-gB:].cpu().numpy(),
+                                   gold[prefix + name]),
+                    f"{what}: {name} of the golden frames differs from the reference")
+
+    launches_pos, rows = None, {}
+    for key, kw in settings.items():
+        m = BatchedMatcher(det, cid, thr, B_MAIN, top_k=top_k, prune=True, device=dev, **kw)
+        m.match_batch(rgbs, deps)  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = m.match_batch(rgbs, deps)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        for k in ("quantize_cg", "spread_response", "walk_scores"):
+            require(launches[k] > 0, f"kernel {k} was not launched by prune mode {key}")
+        pp, fp = m.last_prune, m.last_fine
+        times = event_times(lambda: m.match_batch(rgbs, deps))
+        m.plain = True
+        plain = m.match_batch(rgbs, deps)
+        require(matches_equal(got, plain), f"prune {key}: kernel path != plain path")
+        require(matches_equal(pp, m.last_prune), f"prune {key}: PrunePlan kernel != plain")
+        if key != "two":
+            require(matches_equal(fp, m.last_fine), f"prune {key}: FinePlan kernel != plain")
+            golden_rows(pp, f"{key}_pp_", f"prune {key} PrunePlan")
+            golden_rows(fp, f"{key}_fp_", f"prune {key} FinePlan")
+            require(bool(pp.overflow) == (key == "cof") and
+                    bool(fp.overflow) == (key == "fof"),
+                    f"prune {key}: overflow flags {bool(pp.overflow)}, {bool(fp.overflow)}")
+        if key == "two" and bool(pp.overflow):  # no fallback: a subset, and the flag
+            require(valid_set(got) <= want, "two_axis: a valid match the pooled path lacks")
+        else:
+            require(valid_set(got) == want,
+                    f"prune {key}: valid matches != the pooled matcher's")
+        if key == "pos":
+            launches_pos = launches
+        rows[key] = dict(
+            settings=kw, launches=launches, batch_ms=times,
+            valid_matches=int(got.valid.sum()), coarse_overflow=bool(pp.overflow),
+            coarse_survivors=int(pp.m_survivors.sum()),
+            coarse_survivors_max=int(pp.m_survivors.max()),
+            fine_overflow=None if fp is None else bool(fp.overflow),
+            fine_survivors=None if fp is None else int(fp.m_survivors.sum()),
+            template_survivors=int(pp.n_survivors),
+            valid_of_pooled=f"{int(got.valid.sum())}/{want.total()}")
+        del m
+    emit("prune_modes_batch", batch=B_MAIN, templates=det.bank(cid).num_templates,
+         threshold=thr, top_k=top_k, equal_kernel_vs_plain=True,
+         valid_equal_pooled=True, golden_frame_rows_equal=True,
+         pooled_batch_ms=pooled_ms, modes=rows,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+    # -- the default-mode two-object matcher against phase 8's pooled result --
+    td, cids = two["detector"], two["class_ids"]
+    mc = MultiClassBatchedMatcher(td, list(cids), two["thresholds"], B_MAIN,
+                                  top_k=two["top_k"], device=dev)
+    mc.match_batch(rgbs, deps)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    got = mc.match_batch(rgbs, deps)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    for k in ("quantize_cg", "spread_response", "walk_scores"):
+        require(launches[k] > 0, f"kernel {k} was not launched by the two-object matcher")
+    pp = mc.last_prune
+    times = event_times(lambda: mc.match_batch(rgbs, deps))
+    mc.plain = True
+    plain = mc.match_batch(rgbs, deps)
+    for c in cids:
+        require(matches_equal(got[c], plain[c]),
+                f"two-object positions {c}: kernel path != plain path")
+        require(valid_set(got[c]) == valid_set(two["pooled"][c]),
+                f"two-object positions {c}: valid matches != the pooled mode's")
+    require(matches_equal(pp, mc.last_prune), "two-object PrunePlan: kernel != plain")
+    golden_rows(pp, "mc_pp_", "two-object PrunePlan")
+    emit("two_object_positions", batch=B_MAIN, templates=int(mc.feats1.count.numel()),
+         equal_kernel_vs_plain=True, valid_equal_pooled=True, launches=launches,
+         overflow=bool(pp.overflow), coarse_survivors=int(pp.m_survivors.sum()),
+         valid_matches=[int(got[c].valid.sum()) for c in cids], batch_ms=times,
+         pooled_batch_ms=two["pooled_ms"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del mc, td
+
+    # -- the RGB-only bank (one modality, C = 8) through the pooled path ------
+    rd = Detector.read(RGB_BANK, device=dev)
+    rcid = rd.class_ids[0]
+    rbank = rd.bank(rcid)
+    require(rbank.num_modalities == 1 and not rd.params.use_depth_normal,
+            "the RGB-only bank has a second modality")
+    rd.attach_bank(rbank.tile(-(-10240 // rbank.num_templates), TILE_TO))
+    # Colour alone scores lower on these scenes than RGB-D does and its
+    # bound prunes less: at 80 the batch holds 2033 coarse survivors, past
+    # slice_settings' 56 B pool, so the pools are 96 B and 64 B here.
+    rthr = 80.0
+    rm = BatchedMatcher(rd, rcid, rthr, B_MAIN, device=dev,
+                        **{**slice_settings(B_MAIN), "pool_coarse": 96 * B_MAIN,
+                           "pool_fine": 64 * B_MAIN})
+    rm.match_batch(rgbs)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    R0, cands, n_valid = rm.candidates(rgbs)
+    got = rm.refine(R0, cands, n_valid)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    require((launches["quantize_cg"], launches["spread_response"],
+             launches["walk_scores"]) == (2, 2, 1),
+            f"RGB-only bank: launches {launches}, expected K1 x2, K2 x2, K3 x1")
+    require(R0.shape[1] == 8, f"RGB-only bank: {R0.shape[1]} response channels")
+    stats = rm.last_pool
+    require(not bool(stats.fallback), "the RGB-only batch fell back; it must "
+            "exercise the pooled branch")
+    times = event_times(lambda: rm.match_batch(rgbs))
+    rm.plain = True
+    require(matches_equal(got, rm.match_batch(rgbs)),
+            "RGB-only bank: kernel path != plain path")
+    emit("rgb_only_pooled", batch=B_MAIN, templates=rd.bank(rcid).num_templates,
+         threshold=rthr, channels=8, equal_kernel_vs_plain=True, launches=launches,
+         stats={k: v.tolist() for k, v in stats._asdict().items()},
+         valid_matches=int(got.valid.sum()), batch_ms=times)
+    return launches_pos
 
 
 def main() -> int:
@@ -986,7 +1210,7 @@ def main() -> int:
     per_detect = cascade_phases(dev, perf)
     del main_m, plain_m, fb
     launches7 = k5_phase(dev, det, bank, rgbs, deps, perf)
-    two_object_phase(dev, bank, rgbs, deps)
+    launches9 = prune_phase(dev, det, bank, two_object_phase(dev, bank, rgbs, deps))
 
     # -- summary -------------------------------------------------------------
     # launches: of one B=32 pooled batch (phase 2b) for K1-K3, of one detect
@@ -1016,7 +1240,8 @@ def main() -> int:
             bound_ms=bound_ms, bound_by=shapes[by]["bound"]["by"],
             share_of_bound=bound_ms / ms, library_ms=None,
             library_note="no single PyTorch call computes it",
-            launches_per_detect=per_detect.get(key.removesuffix("_b1")), shapes=shapes))
+            launches_per_detect=per_detect.get(key.removesuffix("_b1")),
+            launches_per_positions_batch=launches9.get(key), shapes=shapes))
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,15 +2,16 @@
 fields in (as ``np.asarray`` gives them from the reference's objects), the
 port's objects out.  Lets a test feed both packages the identical state:
 banks (per-template features, padded arrays, GEMM weights), template pose
-metadata, mesh triangles, and match sets."""
+metadata, mesh triangles, match sets and the pruning plans (which also go
+back to numpy, for golden files)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .ops.match import (BankWeights, CoarseMatches, LevelFeatures, Matches,
-                        MatmulWeight)
+from .ops.match import (BankWeights, CoarseMatches, FinePlan, LevelFeatures,
+                        Matches, MatmulWeight, PrunePlan, PruneResult)
 from .utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -120,3 +121,34 @@ def coarse_matches_from_numpy(template_id, cell_y, cell_x, similarity, valid,
     return CoarseMatches(_t(template_id, torch.int32, device),
                          _t(cell_y, torch.int32, device), _t(cell_x, torch.int32, device),
                          _t(similarity, torch.float32, device), _t(valid, torch.bool, device))
+
+
+def prune_plan_from_numpy(t_idx, t_keep, p_idx, p_keep, n_survivors, m_survivors,
+                          overflow, device=DEFAULT_DEVICE) -> PrunePlan:
+    """PrunePlan fields as numpy -> the port's PrunePlan."""
+    i32, b = torch.int32, torch.bool
+    return PrunePlan(_t(t_idx, i32, device), _t(t_keep, b, device), _t(p_idx, i32, device),
+                     _t(p_keep, b, device), _t(n_survivors, i32, device),
+                     _t(m_survivors, i32, device), _t(overflow, b, device))
+
+
+def fine_plan_from_numpy(p_idx, p_keep, m_survivors, overflow,
+                         device=DEFAULT_DEVICE) -> FinePlan:
+    """FinePlan fields as numpy -> the port's FinePlan."""
+    return FinePlan(_t(p_idx, torch.int32, device), _t(p_keep, torch.bool, device),
+                    _t(m_survivors, torch.int32, device), _t(overflow, torch.bool, device))
+
+
+def prune_result_from_numpy(idx, keep, n_survivors, overflow,
+                            device=DEFAULT_DEVICE) -> PruneResult:
+    """PruneResult fields as numpy -> the port's PruneResult."""
+    return PruneResult(_t(idx, torch.int32, device), _t(keep, torch.bool, device),
+                       _t(n_survivors, torch.int32, device), _t(overflow, torch.bool, device))
+
+
+def record_to_numpy(record, prefix: str = "") -> dict[str, np.ndarray]:
+    """A record of tensors (Matches, PrunePlan, FinePlan, PruneResult,
+    PooledStats, ...) -> {prefix + field: numpy array}: the form the golden
+    files hold, and the reference's records take through np.asarray."""
+    return {prefix + name: a.detach().cpu().numpy()
+            for name, a in record._asdict().items()}

@@ -1,7 +1,6 @@
 """The Detector: cv::linemod::Detector-style host API over the scoring
 engine — the port of ``linemod_pose_estimation_tpu/models/detector.py``
-without template extraction (`add_template`, `write`), which is not
-ported yet.
+without template extraction (`add_template`), which is not ported yet.
 
 `match_raw` / `match` are the single-frame engine: preprocess (K1, K2 at
 B=1), the exact int8 GEMM over every coarse position, template-major
@@ -60,12 +59,29 @@ class Detector:
     def class_ids(self) -> list[str]:
         return list(self._banks.keys())
 
+    def num_templates(self, class_id: str | None = None) -> int:
+        """Templates of one class (0 for an unknown one), or of all."""
+        if class_id is not None:
+            return len(self._banks[class_id].templates) if class_id in self._banks else 0
+        return sum(len(b.templates) for b in self._banks.values())
+
     def attach_bank(self, bank: TemplateBank) -> None:
         self._banks[bank.class_id] = bank
         self._operands.pop(bank.class_id, None)
 
     def bank(self, class_id: str) -> TemplateBank:
         return self._banks[class_id]
+
+    def template_rect0(self, class_id: str, template_id: int) -> tuple[int, int, int, int]:
+        """A template's level-0 (x, y, w, h) bounding box."""
+        return self._banks[class_id].templates[template_id].rect0
+
+    # -- serialization ------------------------------------------------------
+
+    def write(self, path: str, class_id: str | None = None) -> None:
+        """Write one class's bank (the first by default) as a cv::linemod
+        templates.yml."""
+        self.bank(class_id or self.class_ids[0]).write_templates_yaml(path)
 
     @classmethod
     def read(cls, path: str, f_cap: int = 64, device=DEFAULT_DEVICE) -> "Detector":

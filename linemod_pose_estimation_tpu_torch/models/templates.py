@@ -4,10 +4,12 @@ The bank half of ``linemod_pose_estimation_tpu/models/templates.py``:
 parameters, per-template feature lists, the padded LevelFeatures stacks
 and the derived extents, plus the per-template pose
 metadata of a renderer_params.yml (``TemplateMetadata``,
-``RendererGlobals``).  Banks and params load through the native C++
-loader only (``utils/native.py``); template extraction and the PyYAML
-reader are not ported yet.  Bank arrays live on the CPU; matchers copy
-what they need to their device.
+``RendererGlobals``), and the bank's serialization in cv::linemod's own
+YAML schema.  Banks and params load through the native C++ loader
+(``utils/native.py``) where it builds and through PyYAML
+(``utils/opencv_yaml.py``) otherwise, with equal results; the writers
+need neither.  Template extraction is not ported yet.  Bank arrays live
+on the CPU; matchers copy what they need to their device.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.match import LevelFeatures
+from ..utils import opencv_yaml as oy
 
 
 def _maybe_ungz(path: str) -> str:
@@ -160,15 +163,20 @@ class TemplateBank:
         templates: list[TemplateFeatures],
         f_cap: int = 64,
         n_dead: int = 0,
+        metadata: TemplateMetadata | None = None,
+        globals_: RendererGlobals | None = None,
     ):
         """`n_dead` appends that many dead array rows after the templates:
         no features, count 0 and a size no frame fits, so they are never
-        valid anywhere (padding of a tiled bank, see `tile`)."""
+        valid anywhere (padding of a tiled bank, see `tile`).  `metadata`
+        and `globals_` are the pose records `write_params_yaml` writes."""
         self.class_id = class_id
         self.params = params
         self.templates = templates
         self.f_cap = f_cap
         self.n_dead = n_dead
+        self.metadata = metadata
+        self.globals = globals_ or RendererGlobals()
         self._merged: dict[int, LevelFeatures] = {}
         self._build_arrays()
 
@@ -237,98 +245,268 @@ class TemplateBank:
             self._merged[level], _ = merge_modalities(fl, dummy)
         return self._merged[level]
 
+    # -- serialization ------------------------------------------------------
+
+    def write_params_yaml(self, path: str) -> None:
+        """renderer_params.yml, in the byte-level schema of the original
+        renderer's writeLinemodTemplateParams: one `Template i` node per
+        template ({ID, R, T, K, D, Ori_dist, Rect}), then the renderer's
+        globals."""
+        if self.metadata is None:
+            raise ValueError("bank has no pose metadata")
+        m, g = self.metadata, self.globals
+        doc: dict = {}
+        for i in range(len(self.templates)):
+            doc[f"Template {i}"] = {
+                "ID": i,
+                "R": oy.CvMatrix(m.R[i].astype(np.float64)),
+                "T": oy.CvMatrix(m.T[i].reshape(3, 1).astype(np.float64)),
+                "K": oy.CvMatrix(m.K[i].astype(np.float32)),
+                "D": float(m.D[i]),
+                "Ori_dist": float(m.Ori_dist[i]),
+                "Rect": [int(v) for v in m.Rect[i]],
+            }
+        for name in _GLOBAL_FIELDS:
+            doc[f"renderer_{name}"] = getattr(g, name)
+        oy.dump(doc, path)
+
     @staticmethod
     def read_params_yaml(path: str) -> tuple[TemplateMetadata, RendererGlobals]:
-        """Parse a renderer_params.yml (or .yml.gz) through the native
-        loader, which this port requires."""
+        """Parse a renderer_params.yml (or .yml.gz): through the native
+        loader when the toolchain built it, through PyYAML otherwise; both
+        give the same arrays."""
         from ..utils import native
 
         path = _maybe_ungz(path)
         nat = native.load_params_native(path) if native.available() else None
-        if nat is None:
-            raise RuntimeError(
-                f"native params loader unavailable or failed on {path!r} "
-                "(it builds with `make -C native`; needs g++)"
+        if nat is not None:
+            R, T, K, D, Od, Rect, g = nat
+            return (
+                TemplateMetadata(R=R, T=T, K=K, D=D, Ori_dist=Od, Rect=Rect),
+                RendererGlobals(**{
+                    name: kind(v) for (name, kind), v in zip(_GLOBAL_FIELDS.items(), g)}),
             )
-        R, T, K, D, Od, Rect, g = nat
-        return (
-            TemplateMetadata(R=R, T=T, K=K, D=D, Ori_dist=Od, Rect=Rect),
-            RendererGlobals(
-                n_points=int(g[0]), angle_step=int(g[1]), radius_min=g[2],
-                radius_max=g[3], radius_step=g[4], width=int(g[5]),
-                height=int(g[6]), focal_length_x=g[7], focal_length_y=g[8],
-                near=g[9], far=g[10],
-            ),
+        return _params_from_doc(oy.load(path))
+
+    def _modality_names(self) -> list[str]:
+        p = self.params
+        return (["ColorGradient"] if p.use_color_gradient else []) + (
+            ["DepthNormal"] if p.use_depth_normal else []
         )
+
+    def write_templates_yaml(self, path: str) -> None:
+        """Detector + templates YAML in cv::linemod's OWN serialization
+        schema (Detector::write, writeClass, Template::write,
+        Feature::write), so banks written here load in OpenCV and vice
+        versa:
+
+        - template entries carry NO modality name; a TemplatePyramid is the
+          flat list tp[level * num_modalities + modality_index],
+        - feature rows are ``[x, y, label]`` (the rows held here are
+          (y, x, ori): swapped at this boundary),
+        - the class node lists its modality names.
+        """
+        p = self.params
+        mods = []
+        if p.use_color_gradient:
+            mods.append({
+                "type": "ColorGradient",
+                "weak_threshold": p.color.weak_threshold,
+                "num_features": p.color.num_features,
+                "strong_threshold": p.color.strong_threshold,
+            })
+        if p.use_depth_normal:
+            mods.append({
+                "type": "DepthNormal",
+                "distance_threshold": p.depth.distance_threshold,
+                "difference_threshold": p.depth.difference_threshold,
+                "num_features": p.depth.num_features,
+                "extract_threshold": p.depth.extract_threshold,
+            })
+        pyramids = []
+        for i, t in enumerate(self.templates):
+            entries = []
+            for l in range(p.pyramid_levels):
+                mods_l = ([t.grad[l]] if p.use_color_gradient else []) + (
+                    [t.norm[l]] if p.use_depth_normal else [])
+                for fl in mods_l:
+                    entries.append({
+                        "width": int(t.size[l][1]),
+                        "height": int(t.size[l][0]),
+                        "pyramid_level": l,
+                        "features": oy.BlockRows(
+                            [int(f[1]), int(f[0]), int(f[2])] for f in fl),
+                    })
+            pyramids.append({"template_id": i, "templates": entries})
+        doc = {
+            "pyramid_levels": p.pyramid_levels,
+            "modalities": mods,
+            "T": list(p.t_pyramid),
+            "classes": [{
+                "class_id": self.class_id,
+                "modalities": self._modality_names(),
+                "pyramid_levels": p.pyramid_levels,
+                "template_pyramids": pyramids,
+            }],
+        }
+        oy.dump(doc, path)
 
     @staticmethod
     def read_templates_yaml(path: str, f_cap: int = 64) -> "TemplateBank":
-        """Load a cv::linemod templates.yml (or .yml.gz) through the native
-        loader, which this port requires."""
-        import gzip
-        import re
-
+        """Load a cv::linemod templates.yml (or .yml.gz): through the
+        native loader when the toolchain built it, through PyYAML
+        otherwise; both give the same bank."""
         from ..utils import native
 
         path = _maybe_ungz(path)
         nat = native.load_templates_native(path) if native.available() else None
         if nat is None:
-            raise RuntimeError(
-                f"native bank loader unavailable or failed on {path!r} "
-                "(it builds with `make -C native`; needs g++)"
-            )
-        entries, features, header, mparams = nat
-        # header[1] is a modality bitmask: bit0 ColorGradient, bit1 DepthNormal.
-        levels, mod_mask, T0, T1 = (int(v) for v in header)
-        cp = ModalityParams(
-            weak_threshold=float(mparams[0, 0]) or 10.0,
-            num_features=int(mparams[0, 1]) or 63,
-            strong_threshold=float(mparams[0, 2]) or 55.0,
-        )
-        dp = ModalityParams(
-            distance_threshold=float(mparams[1, 0]) or 2000.0,
-            difference_threshold=float(mparams[1, 1]) or 50.0,
-            num_features=int(mparams[1, 2]) or 63,
-            extract_threshold=int(mparams[1, 3]) or 2,
-        )
-        params = DetectorParams(
-            t_pyramid=(T0, T1),
-            use_color_gradient=bool(mod_mask & 1),
-            use_depth_normal=bool(mod_mask & 2),
-            color=cp,
-            depth=dp,
-        )
-        templates: list[TemplateFeatures] = []
-        fo = 0
-        cur_pid = -1
-        for e in entries:
-            pid, w, h, level, mod, nf = (int(v) for v in e)
-            if pid != cur_pid:
-                templates.append(
-                    TemplateFeatures(
-                        grad=[None] * levels, norm=[None] * levels,  # type: ignore
-                        size=[(0, 0)] * levels, rect0=(0, 0, 0, 0),
-                    )
+            return _bank_from_doc(oy.load(path), f_cap)
+        return _bank_from_native(nat, path, f_cap)
+
+
+_GLOBAL_FIELDS = {  # renderer_<name> keys of a params file, in file order
+    "n_points": int, "angle_step": int, "radius_min": float, "radius_max": float,
+    "radius_step": float, "width": int, "height": int, "focal_length_x": float,
+    "focal_length_y": float, "near": float, "far": float,
+}
+
+
+def _params_from_doc(doc: dict) -> tuple[TemplateMetadata, RendererGlobals]:
+    """A parsed renderer_params.yml -> (TemplateMetadata, RendererGlobals)."""
+    n = 0
+    while f"Template {n}" in doc:
+        n += 1
+    R = np.zeros((n, 3, 3))
+    T = np.zeros((n, 3))
+    K = np.zeros((n, 3, 3), np.float32)
+    D = np.zeros((n,))
+    Od = np.zeros((n,))
+    Rect = np.zeros((n, 4), np.int32)
+    for i in range(n):
+        t = doc[f"Template {i}"]
+        R[i] = t["R"]
+        T[i] = np.asarray(t["T"]).ravel()
+        K[i] = t["K"]
+        D[i] = t["D"]
+        Od[i] = t["Ori_dist"]
+        Rect[i] = t["Rect"]
+    default = RendererGlobals()
+    g = RendererGlobals(**{
+        name: kind(doc.get(f"renderer_{name}", getattr(default, name)))
+        for name, kind in _GLOBAL_FIELDS.items()})
+    return TemplateMetadata(R=R, T=T, K=K, D=D, Ori_dist=Od, Rect=Rect), g
+
+
+def _bank_from_native(nat, path: str, f_cap: int) -> TemplateBank:
+    """The native loader's blobs (of the plain-YAML file at `path`) -> a
+    TemplateBank."""
+    import re
+
+    entries, features, header, mparams = nat
+    # header[1] is a modality bitmask: bit0 ColorGradient, bit1 DepthNormal.
+    levels, mod_mask, T0, T1 = (int(v) for v in header)
+    cp = ModalityParams(
+        weak_threshold=float(mparams[0, 0]) or 10.0,
+        num_features=int(mparams[0, 1]) or 63,
+        strong_threshold=float(mparams[0, 2]) or 55.0,
+    )
+    dp = ModalityParams(
+        distance_threshold=float(mparams[1, 0]) or 2000.0,
+        difference_threshold=float(mparams[1, 1]) or 50.0,
+        num_features=int(mparams[1, 2]) or 63,
+        extract_threshold=int(mparams[1, 3]) or 2,
+    )
+    params = DetectorParams(
+        t_pyramid=(T0, T1),
+        use_color_gradient=bool(mod_mask & 1),
+        use_depth_normal=bool(mod_mask & 2),
+        color=cp,
+        depth=dp,
+    )
+    templates: list[TemplateFeatures] = []
+    fo = 0
+    cur_pid = -1
+    for e in entries:
+        pid, w, h, level, mod, nf = (int(v) for v in e)
+        if pid != cur_pid:
+            templates.append(
+                TemplateFeatures(
+                    grad=[None] * levels, norm=[None] * levels,  # type: ignore
+                    size=[(0, 0)] * levels, rect0=(0, 0, 0, 0),
                 )
-                cur_pid = pid
-            t = templates[-1]
-            # Blob rows are raw file order [x, y, label] -> (y, x, ori).
-            fl = features[fo:fo + nf][:, [1, 0, 2]].copy()
-            fo += nf
-            t.size[level] = (h, w)
-            if mod == 0:
-                t.grad[level] = fl
+            )
+            cur_pid = pid
+        t = templates[-1]
+        # Blob rows are raw file order [x, y, label] -> (y, x, ori).
+        fl = features[fo:fo + nf][:, [1, 0, 2]].copy()
+        fo += nf
+        t.size[level] = (h, w)
+        if mod == 0:
+            t.grad[level] = fl
+        else:
+            t.norm[level] = fl
+    for t in templates:
+        t.grad = [g for g in t.grad if g is not None]
+        t.norm = [n for n in t.norm if n is not None]
+        if t.size[0] != (0, 0):
+            t.rect0 = (0, 0, t.size[0][1], t.size[0][0])
+    # class_id lives in a small header region; grab it cheaply.
+    with open(path, "rt") as f:
+        head = f.read(65536)
+    m = re.search(r"class_id:\s*(\S+)", head)
+    class_id = m.group(1) if m else "obj"
+    return TemplateBank(class_id, params, templates, f_cap=f_cap)
+
+
+def _bank_from_doc(doc: dict, f_cap: int) -> TemplateBank:
+    """A parsed cv::linemod templates.yml -> a TemplateBank."""
+    mods = {m["type"]: m for m in doc["modalities"]}
+    cp = ModalityParams()
+    dp = ModalityParams()
+    if "ColorGradient" in mods:
+        m = mods["ColorGradient"]
+        cp.weak_threshold = float(m["weak_threshold"])
+        cp.num_features = int(m["num_features"])
+        cp.strong_threshold = float(m["strong_threshold"])
+    if "DepthNormal" in mods:
+        m = mods["DepthNormal"]
+        dp.distance_threshold = float(m["distance_threshold"])
+        dp.difference_threshold = float(m["difference_threshold"])
+        dp.num_features = int(m["num_features"])
+        dp.extract_threshold = int(m["extract_threshold"])
+    params = DetectorParams(
+        t_pyramid=tuple(doc["T"]),
+        use_color_gradient="ColorGradient" in mods,
+        use_depth_normal="DepthNormal" in mods,
+        color=cp,
+        depth=dp,
+    )
+    cls = doc["classes"][0]
+    mod_names = list(cls.get("modalities", [m["type"] for m in doc["modalities"]]))
+    n_mod = max(len(mod_names), 1)
+    templates: list[TemplateFeatures] = []
+    for pyr in cls["template_pyramids"]:
+        grad: list[np.ndarray] = [None] * params.pyramid_levels  # type: ignore
+        norm: list[np.ndarray] = [None] * params.pyramid_levels  # type: ignore
+        size = [(0, 0)] * params.pyramid_levels
+        for j, e in enumerate(pyr["templates"]):
+            l = int(e["pyramid_level"])
+            # File rows are [x, y, label]; the rows held here are (y, x, ori).
+            fl = np.array(e["features"], np.int32).reshape(-1, 3)[:, [1, 0, 2]]
+            size[l] = (int(e["height"]), int(e["width"]))
+            # Entries carry no modality name: the pyramid is the flat list
+            # tp[level * num_modalities + modality_index].
+            if mod_names[j % n_mod] == "ColorGradient":
+                grad[l] = fl
             else:
-                t.norm[level] = fl
-        for t in templates:
-            t.grad = [g for g in t.grad if g is not None]
-            t.norm = [n for n in t.norm if n is not None]
-            if t.size[0] != (0, 0):
-                t.rect0 = (0, 0, t.size[0][1], t.size[0][0])
-        # class_id lives in a small header region; grab it cheaply.
-        opener = gzip.open if path.endswith(".gz") else open
-        with opener(path, "rt") as f:
-            head = f.read(65536)
-        m = re.search(r"class_id:\s*(\S+)", head)
-        class_id = m.group(1) if m else "obj"
-        return TemplateBank(class_id, params, templates, f_cap=f_cap)
+                norm[l] = fl
+        templates.append(
+            TemplateFeatures(
+                grad=[g for g in grad if g is not None] if params.use_color_gradient else [],
+                norm=[n for n in norm if n is not None] if params.use_depth_normal else [],
+                size=size,
+                rect0=(0, 0, size[0][1], size[0][0]),
+            )
+        )
+    return TemplateBank(cls["class_id"], params, templates, f_cap=f_cap)

@@ -15,12 +15,17 @@ The production path is the pooled exact matcher:
 
 The exhaustive mode (BatchedMatcher(prune=False)) is
 coarse_scores_gemm_flat_batched and a per-frame select_candidates_flat,
-then the walk.  The window refiners (refine_candidates, _slices, _conv,
+then the walk.  The per-frame-cap modes are
+match_coarse_pruned_fine_with_fallback (`positions`: prune_positions_
+batched, fine_ub_at_survivors, fine_plan_from_ub, the survivor GEMM, with
+the coarse survivor set and the exhaustive GEMM as exact fallbacks) and
+prune_plan_batched with the _sub2 GEMM and select (`two_axis`: both axes
+compacted, no fallback).  The window refiners (refine_candidates, _slices, _conv,
 _pallas, _pallas_batched) score a dense 24 x 24 window around each
 candidate; the last two run K5.  The two-object path
 (MultiClassBatchedMatcher) is concat_level_features,
-match_pooled_multiclass, merge_candidates_sorted, the walk and
-split_matches_by_class.
+match_coarse_pruned_multiclass or match_pooled_multiclass,
+merge_candidates_sorted, the walk and split_matches_by_class.
 
 The single-frame engine (``models/detector.py::Detector.match_raw``) is
 preprocess_frame (the B=1 call of the batched preprocess), the
@@ -217,29 +222,31 @@ class MatmulWeight(NamedTuple):
 
 
 class BankWeights(NamedTuple):
-    """The pooled matcher's bank operands (built once per bank)."""
+    """A matcher's bank operands (built once per bank)."""
 
     W_gemm: MatmulWeight  # exact one-hot weights, (C*T*T*Kc*Kc, N)
     W_cell: MatmulWeight  # cell-max bound, from (N, C*Kc*Kc)
-    W_fine: MatmulWeight  # g x g subcell bound, from (N, KS*KS*C)
+    W_fine: MatmulWeight | None  # g x g subcell bound, from (N, KS*KS*C)
     W_group: MatmulWeight | None  # group-max bound, from (Ng, C*Kc*Kc)
     group_counts: torch.Tensor | None  # (Ng, group) int32
 
 
 def build_bank_weights(
-    feats1: LevelFeatures, C: int, T: int, Kc: int, g: int,
+    feats1: LevelFeatures, C: int, T: int, Kc: int, g: int | None,
     group: int | None = None,
 ) -> BankWeights:
-    """Every bank operand of the pooled matcher, on feats1's device."""
+    """Every bank operand of the pruned matchers, on feats1's device: the
+    fine bound's only with `g`, the group tier's only with `group`."""
     W_cell = build_cell_weights(feats1, C, T, Kc)
-    W_group = counts = None
+    W_fine = W_group = counts = None
+    if g:
+        W_fine = MatmulWeight.from_nk(build_cell_weights_fine(feats1, C, T, Kc, g))
     if group:
         W_group, counts = build_group_bound(feats1, C, T, Kc, group, W_cell=W_cell)
+        W_group = MatmulWeight.from_nk(W_group)
     return BankWeights(
         W_gemm=MatmulWeight.from_kn(build_gemm_weights(feats1, C, T, Kc)),
-        W_cell=MatmulWeight.from_nk(W_cell),
-        W_fine=MatmulWeight.from_nk(build_cell_weights_fine(feats1, C, T, Kc, g)),
-        W_group=None if W_group is None else MatmulWeight.from_nk(W_group),
+        W_cell=MatmulWeight.from_nk(W_cell), W_fine=W_fine, W_group=W_group,
         group_counts=counts,
     )
 
@@ -342,12 +349,15 @@ def _sim_scale(total_features: torch.Tensor) -> torch.Tensor:
 
 
 def _topk_first_index(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last dim of f32 `vals`, ties broken by the LOWER
-    index first (JAX top_k's order), via one topk on a unique int64 key:
-    the order-preserving int32 image of the float, then the inverted
-    index."""
-    bits = vals.contiguous().view(torch.int32)
-    key32 = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
+    """Top-k along the last dim of f32 or int32 `vals`, ties broken by the
+    LOWER index first (JAX top_k's order), via one topk on a unique int64
+    key: the value (a float's order-preserving int32 image), then the
+    inverted index."""
+    if vals.dtype == torch.int32:
+        key32 = vals.to(torch.int64)
+    else:
+        bits = vals.contiguous().view(torch.int32)
+        key32 = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
     n = vals.shape[-1]
     inv = (0xFFFFFFFF - torch.arange(n, device=vals.device, dtype=torch.int64))
     _, idx = torch.topk(key32 * (1 << 32) + inv, k, dim=-1, largest=True, sorted=True)
@@ -589,6 +599,21 @@ def fine_ub_at_pool(
     return int8_mm(gather_windows_pooled(L3, row0, col0, KS), W_fine)
 
 
+def _survivor_patches(Rb: torch.Tensor, frame: torch.Tensor, pos: torch.Tensor,
+                      T: int, Kc: int) -> torch.Tensor:
+    """(M, Kc*Kc*C*T*T) int8 exact-GEMM patch rows of the survivors
+    (frame[m], flat cell pos[m]): each row's Kc x Kc cell vectors gathered
+    straight from the linearized-cell tensor, in _gemm_patches' column
+    order."""
+    B, C, H, W = Rb.shape
+    Hc, Wc_ = H // T, W // T
+    L = linearize_responses_lanes(Rb.to(torch.int8), T, Kc)
+    Hy = Hc + Kc
+    L3 = L.reshape(B * Hy, Wc_ + Kc, C * T * T)
+    row0 = frame * Hy + torch.div(pos, Wc_, rounding_mode="floor")
+    return gather_windows_pooled(L3, row0, pos % Wc_, Kc)
+
+
 def coarse_scores_gemm_pooled(
     Rb: torch.Tensor,
     W_gemm: MatmulWeight,
@@ -599,13 +624,7 @@ def coarse_scores_gemm_pooled(
 ) -> torch.Tensor:
     """Exact coarse GEMM over pool candidates: (M, N) int32 — rows of the
     exhaustive GEMM, bit for bit."""
-    B, C, H, W = Rb.shape
-    Hc, Wc_ = H // T, W // T
-    L = linearize_responses_lanes(Rb.to(torch.int8), T, Kc)
-    Hy = Hc + Kc
-    L3 = L.reshape(B * Hy, Wc_ + Kc, C * T * T)
-    row0 = frame * Hy + torch.div(pos, Wc_, rounding_mode="floor")
-    return int8_mm(gather_windows_pooled(L3, row0, pos % Wc_, Kc), W_gemm)
+    return int8_mm(_survivor_patches(Rb, frame, pos, T, Kc), W_gemm)
 
 
 def coarse_scores_gemm_flat_batched(
@@ -792,6 +811,462 @@ def _pooled_selects(
 
 
 # ---------------------------------------------------------------------------
+# Per-frame survivor caps: the `positions` and `two_axis` prune modes
+# ---------------------------------------------------------------------------
+#
+# The cell-max bound again, compacted per frame instead of into one pool:
+# every frame keeps its m_cap highest-margin survivor positions, so every
+# stage is sized by B * m_cap whatever the scene holds.  In `positions`
+# mode any frame past a cap sends the whole batch down a fallback (the
+# fine stage's: the coarse survivor set; the coarse stage's: the
+# exhaustive GEMM), so the candidate set stays exact.  `two_axis` also
+# compacts the batch-union template axis and has no fallback: over
+# capacity it keeps the highest-bound entries and reports the flag.
+#
+# The reference assembles survivor patches with two one-hot matmuls (a TPU
+# workaround, kept here as gather_cell_patches_onehot for the tests); the
+# port gathers them directly, as the pooled path does.
+
+
+class PruneResult(NamedTuple):
+    """Survivor-template compaction of a bank for one frame batch.
+
+    idx:  (n_cap,) int32 — global template ids of the survivors (the
+          n_cap highest-bound ones when over capacity)
+    keep: (n_cap,) bool — slot holds a real survivor
+    n_survivors: () int32 — true survivor count (before capping)
+    overflow: () bool — n_survivors > n_cap: exactness no longer holds
+          for the templates left out
+    """
+
+    idx: torch.Tensor
+    keep: torch.Tensor
+    n_survivors: torch.Tensor
+    overflow: torch.Tensor
+
+
+class PrunePlan(NamedTuple):
+    """Per-frame survivor compaction on the position axis, and (in
+    `two_axis` mode) a batch-union one on the template axis; in
+    `positions` mode the template axis is the identity.
+
+    t_idx/t_keep: (n_cap,) int32 / bool — survivor templates (global ids)
+    p_idx/p_keep: (B, m_cap) int32 / bool — survivor flat positions
+    n_survivors: () int32 — true template-survivor count
+    m_survivors: (B,) int32 — true position-survivor count per frame
+    overflow: () bool — either axis over capacity
+    """
+
+    t_idx: torch.Tensor
+    t_keep: torch.Tensor
+    p_idx: torch.Tensor
+    p_keep: torch.Tensor
+    n_survivors: torch.Tensor
+    m_survivors: torch.Tensor
+    overflow: torch.Tensor
+
+
+class FinePlan(NamedTuple):
+    """Second-stage (g x g subcell bound) survivor-position compaction.
+
+    p_idx: (B, m2_cap) int32 — fine-surviving flat positions (compacted
+           from the coarse PrunePlan's p_idx)
+    p_keep: (B, m2_cap) bool — slot holds a live position
+    m_survivors: (B,) int32 — true fine-survivor count per frame
+    overflow: () bool — a frame exceeded m2_cap: callers score the coarse
+           survivor set instead
+    """
+
+    p_idx: torch.Tensor
+    p_keep: torch.Tensor
+    m_survivors: torch.Tensor
+    overflow: torch.Tensor
+
+
+def _default_cap(cap: int | None, parent_cap: int, name: str) -> int:
+    """None -> half the parent cap; an explicit non-positive value is an
+    error (an explicit 0 must not silently become the default)."""
+    if cap is None:
+        return max(parent_cap // 2, 1)
+    if cap <= 0:
+        raise ValueError(f"{name} must be positive (got {cap}); pass None "
+                         "for the default")
+    return cap
+
+
+def _count_i32(mask: torch.Tensor, dim=None) -> torch.Tensor:
+    return (mask.sum() if dim is None else mask.sum(dim=dim)).to(torch.int32)
+
+
+def _sim_upper_bound(Rb, W_cell: MatmulWeight, total_features, vpos_flat, T, Kc):
+    """(B, P, N) f32 similarity of the cell-max bound, invalid positions
+    -1: one f32 multiply by the per-template scale, as the reference."""
+    B, C, H, W = Rb.shape
+    P = (H // T) * (W // T)
+    ub = int8_mm(_ub_patches(Rb, T, Kc), W_cell).reshape(B, P, -1)
+    sim_ub = ub.to(torch.float32) * _sim_scale(total_features)
+    return torch.where(vpos_flat[None], sim_ub, -1.0)
+
+
+def _float_slack_threshold(threshold: float, device) -> torch.Tensor:
+    """threshold - 1e-3 in f32: the two_axis planners' float eligibility
+    rule (the slack can only ADD survivors)."""
+    return (torch.tensor(threshold, dtype=torch.float32, device=device)
+            - torch.tensor(1e-3, dtype=torch.float32, device=device))
+
+
+def _top_eligible(score: torch.Tensor, elig: torch.Tensor, k: int):
+    """The k highest-scoring eligible entries along the last dim (ties:
+    the lower index), ineligible ones at -inf: (idx int32, keep)."""
+    vals, idx = _topk_first_index(
+        torch.where(elig, score, float("-inf")), k)
+    return idx.to(torch.int32), vals > float("-inf")
+
+
+def prune_templates_batched(
+    Rb: torch.Tensor,
+    W_cell: MatmulWeight,
+    total_features: torch.Tensor,
+    vpos_flat: torch.Tensor,
+    threshold: float,
+    T: int,
+    Kc: int,
+    n_cap: int,
+) -> PruneResult:
+    """Upper-bound pass over a (B, C, H, W) response batch: the compacted
+    set of templates whose bound similarity reaches `threshold` at any
+    valid position of any frame (a superset of every template that can
+    appear as a candidate at that threshold)."""
+    sim_ub = _sim_upper_bound(Rb, W_cell, total_features, vpos_flat, T, Kc)
+    t_score = sim_ub.amax(dim=(0, 1))
+    elig = t_score >= _float_slack_threshold(threshold, Rb.device)
+    n_surv = _count_i32(elig)
+    k = min(n_cap, W_cell.n)
+    idx, keep = _top_eligible(t_score, elig, k)
+    return PruneResult(idx, keep, n_surv, n_surv > k)
+
+
+def prune_plan_batched(
+    Rb: torch.Tensor,
+    W_cell: MatmulWeight,
+    total_features: torch.Tensor,
+    vpos_flat: torch.Tensor,
+    threshold: float,
+    T: int,
+    Kc: int,
+    n_cap: int,
+    m_cap: int,
+) -> PrunePlan:
+    """One cell-max bound GEMM -> survivor compaction on BOTH axes (the
+    `two_axis` mode's plan)."""
+    sim_ub = _sim_upper_bound(Rb, W_cell, total_features, vpos_flat, T, Kc)
+    thr = _float_slack_threshold(threshold, Rb.device)
+    t_score = sim_ub.amax(dim=(0, 1))  # (N,)
+    t_elig = t_score >= thr
+    n_surv = _count_i32(t_elig)
+    kn = min(n_cap, W_cell.n)
+    t_idx, t_keep = _top_eligible(t_score, t_elig, kn)
+    p_score = sim_ub.amax(dim=2)  # (B, P)
+    p_elig = p_score >= thr
+    m_surv = _count_i32(p_elig, 1)
+    km = min(m_cap, p_score.shape[1])
+    p_idx, p_keep = _top_eligible(p_score, p_elig, km)
+    overflow = (n_surv > kn) | (m_surv > km).any()
+    return PrunePlan(t_idx, t_keep, p_idx, p_keep, n_surv, m_surv, overflow)
+
+
+def prune_positions_batched(
+    Rb: torch.Tensor,
+    W_cell: MatmulWeight,
+    total_features: torch.Tensor,
+    vpos_flat: torch.Tensor,
+    threshold: float,
+    T: int,
+    Kc: int,
+    m_cap: int,
+) -> PrunePlan:
+    """Position-axis-only pruning: the int-domain cell-max margins
+    (position_margins_batched) -> each frame's m_cap highest-margin
+    eligible positions, ties to the lower cell.  The template axis of the
+    plan is the identity, so the exact GEMM keeps the static weights.
+    Every (position, template) whose exact score reaches threshold
+    survives: the bound dominates the exact response at every feature."""
+    N = W_cell.n
+    dev = Rb.device
+    p_score = position_margins_batched(
+        Rb, W_cell, total_features, vpos_flat, threshold, T, Kc)
+    p_elig = p_score >= 0
+    m_surv = _count_i32(p_elig, 1)
+    km = min(m_cap, p_score.shape[1])
+    pv, p_idx = _topk_first_index(torch.where(p_elig, p_score, _NEG), km)
+    return PrunePlan(
+        torch.arange(N, dtype=torch.int32, device=dev),
+        torch.ones(N, dtype=torch.bool, device=dev),
+        p_idx.to(torch.int32), pv > _NEG,
+        torch.tensor(N, dtype=torch.int32, device=dev), m_surv,
+        (m_surv > km).any(),
+    )
+
+
+def _frame_pos(p_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, m) per-frame positions -> flat (frame, pos) int64 pairs."""
+    B, m = p_idx.shape
+    frame = torch.arange(B, device=p_idx.device).repeat_interleave(m)
+    return frame, p_idx.reshape(-1).long()
+
+
+def gather_cell_patches_onehot(L4: torch.Tensor, p_idx: torch.Tensor, Kc: int,
+                               Wc: int) -> torch.Tensor:
+    """The reference's survivor patch gather as two one-hot contractions
+    (columns, then rows): (B, Hy, Wx, D) int8 planes and (B, m) flat cells
+    -> (B, m, Kc*Kc*D) int8.  Kept as the plain version the direct gather
+    (assemble_survivor_patches) is tested against; nothing else calls it."""
+    B, Hy, Wx, D = L4.shape
+    dev = L4.device
+    py = torch.div(p_idx, Wc, rounding_mode="floor").long()
+    px = (p_idx % Wc).long()
+    q = torch.arange(Kc, device=dev)
+    Csel = (torch.arange(Wx, device=dev)[None, None, :, None]
+            == (px[..., None, None] + q)).to(torch.int32)  # (B, m, Wx, Kc)
+    Rsel = (torch.arange(Hy, device=dev)[None, None, :, None]
+            == (py[..., None, None] + q)).to(torch.int32)  # (B, m, Hy, Kc)
+    s1 = torch.einsum("byxt,bjxr->bjyrt", L4.to(torch.int32), Csel)
+    s2 = torch.einsum("bjyrt,bjyq->bjqrt", s1, Rsel)
+    return s2.to(torch.int8).reshape(B, p_idx.shape[1], Kc * Kc * D)
+
+
+def assemble_survivor_patches(Rb: torch.Tensor, p_idx: torch.Tensor, T: int,
+                              Kc: int) -> torch.Tensor:
+    """(B, C, H, W) responses + (B, m) survivor cells -> (B, m, K) int8
+    patch rows of the exact survivor GEMM (build_gemm_weights' column
+    order), gathered directly from the linearized-cell tensor."""
+    B, m = p_idx.shape
+    return _survivor_patches(Rb, *_frame_pos(p_idx), T, Kc).reshape(B, m, -1)
+
+
+def coarse_scores_gemm_flat_batched_pos(
+    Rb: torch.Tensor, W_gemm: MatmulWeight, p_idx: torch.Tensor, T: int, Kc: int
+) -> torch.Tensor:
+    """Exact coarse GEMM over per-frame survivor POSITIONS with the full
+    static weights: (B, m_cap, N) int32 — rows of the exhaustive GEMM."""
+    B, m = p_idx.shape
+    return coarse_scores_gemm_pooled(
+        Rb, W_gemm, *_frame_pos(p_idx), T, Kc).reshape(B, m, -1)
+
+
+def fine_ub_at_survivors(
+    Rb: torch.Tensor, p_idx: torch.Tensor, W_fine: MatmulWeight, T: int, Kc: int,
+    g: int,
+) -> torch.Tensor:
+    """g x g subcell upper bound at per-frame survivors: (B, m, N) int32.
+    It dominates the exact raw score and is dominated by the cell-max
+    bound."""
+    B, m = p_idx.shape
+    return fine_ub_at_pool(Rb, *_frame_pos(p_idx), W_fine, T, Kc, g).reshape(B, m, -1)
+
+
+def fine_plan_from_ub(
+    ub_fine: torch.Tensor,
+    total_features: torch.Tensor,
+    vpos_flat: torch.Tensor,
+    p_idx: torch.Tensor,
+    p_keep: torch.Tensor,
+    threshold: float,
+    m2_cap: int,
+) -> FinePlan:
+    """Coarse survivors -> fine survivors: a position stays only if SOME
+    template's fine bound still reaches threshold there (the same int
+    rule as prune_positions_batched), re-ranked by fine margin and
+    compacted to m2_cap slots."""
+    m = ub_fine.shape[1]
+    t_int = int_score_threshold(threshold, total_features).to(torch.int32)
+    margin = torch.where(vpos_flat[p_idx.long()], ub_fine - t_int, _NEG)
+    p_score = margin.amax(dim=2)  # (B, m)
+    keep2 = (p_score >= 0) & p_keep
+    m_surv = _count_i32(keep2, 1)
+    km = min(m2_cap, m)
+    pv, j2 = _topk_first_index(torch.where(keep2, p_score, _NEG), km)
+    return FinePlan(torch.gather(p_idx, 1, j2), pv > _NEG, m_surv,
+                    (m_surv > km).any())
+
+
+def _positions_selects(
+    Rb, pp: PrunePlan, W_gemm, W_fine, total_features, vpos_flat, classes,
+    thr_bound: float, T, Kc, g, m2_cap, top_k, Wc,
+) -> tuple[list[CoarseMatches], FinePlan | None]:
+    """The `positions` matcher after its coarse plan `pp`: with a fine
+    stage (`g`), the subcell re-test at `thr_bound` and the exact GEMM
+    over the fine survivors, or over the coarse ones when a frame
+    overflows m2_cap; the exhaustive GEMM when `pp` overflowed.  One
+    select per (vpos_c, threshold_c) of `classes`.  The reference's nested
+    lax.cond's are host branches here: each reads its flag with .item()
+    (one device sync) and only the taken branch runs.  Returns the
+    per-class CoarseMatches (B, top_k) and the FinePlan (None without a
+    fine stage; a placeholder holding nothing on the exhaustive branch)."""
+    B = Rb.shape[0]
+    dev = Rb.device
+
+    def select_at(p_idx, p_keep):
+        raw = coarse_scores_gemm_flat_batched_pos(Rb, W_gemm, p_idx, T, Kc)
+        return [select_candidates_flat_pos(raw, total_features, vpos_c, p_idx.long(),
+                                           p_keep, thr_c, top_k, Wc)
+                for vpos_c, thr_c in classes]
+
+    if pp.overflow.item():
+        raw = coarse_scores_gemm_flat_batched(Rb, W_gemm, T, Kc)
+        cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k, Wc)
+                 for vpos_c, thr_c in classes]
+        if g is None:
+            return cands, None
+        km2 = min(m2_cap, pp.p_idx.shape[1])
+        return cands, FinePlan(
+            pp.p_idx[:, :km2], torch.zeros((B, km2), dtype=torch.bool, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.bool, device=dev))
+    if g is None:
+        return select_at(pp.p_idx, pp.p_keep), None
+    ubf = fine_ub_at_survivors(Rb, pp.p_idx, W_fine, T, Kc, g)
+    fp = fine_plan_from_ub(ubf, total_features, vpos_flat, pp.p_idx, pp.p_keep,
+                           thr_bound, m2_cap)
+    del ubf
+    if fp.overflow.item():
+        return select_at(pp.p_idx, pp.p_keep), fp
+    return select_at(fp.p_idx, fp.p_keep), fp
+
+
+def match_coarse_pruned_fine_with_fallback(
+    Rb: torch.Tensor,
+    W_gemm: MatmulWeight,
+    W_cell: MatmulWeight,
+    W_fine: MatmulWeight,
+    total_features: torch.Tensor,
+    vpos_flat: torch.Tensor,
+    threshold: float,
+    T: int,
+    Kc: int,
+    g: int,
+    m_cap: int,
+    m2_cap: int,
+    top_k: int,
+    Wc: int,
+) -> tuple[CoarseMatches, PrunePlan, FinePlan]:
+    """Two-stage exact position pruning with per-frame caps.
+
+    Stage 1 (prune_positions_batched): the cell-max bound over every
+    coarse position -> m_cap survivor positions per frame.  Stage 2
+    (fine_ub_at_survivors + fine_plan_from_ub): the g x g subcell bound at
+    the survivors, compacted to m2_cap.  Exact pass: survivor patches x
+    the exhaustive engine's static weights.  A fine overflow scores all
+    m_cap coarse survivors, a coarse overflow every position, so the
+    candidate set is unconditionally exact.  Returns (CoarseMatches (B,
+    top_k), PrunePlan, FinePlan)."""
+    if T % g != 0:
+        raise ValueError(f"g={g} must divide T={T}")
+    pp = prune_positions_batched(
+        Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, m_cap)
+    cands, fp = _positions_selects(
+        Rb, pp, W_gemm, W_fine, total_features, vpos_flat,
+        [(vpos_flat, threshold)], threshold, T, Kc, g, m2_cap, top_k, Wc)
+    return cands[0], pp, fp
+
+
+def match_coarse_pruned_with_fallback(
+    Rb: torch.Tensor,
+    W_gemm: MatmulWeight,
+    W_cell: MatmulWeight,
+    total_features: torch.Tensor,
+    vpos_flat: torch.Tensor,
+    threshold: float,
+    T: int,
+    Kc: int,
+    m_cap: int,
+    top_k: int,
+    Wc: int,
+) -> tuple[CoarseMatches, PrunePlan]:
+    """Position-pruned coarse pass without the fine stage: the exact GEMM
+    over each frame's m_cap survivors, or over every position when any
+    frame overflows m_cap.  Returns (CoarseMatches (B, top_k), PrunePlan)."""
+    pp = prune_positions_batched(
+        Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, m_cap)
+    cands, _ = _positions_selects(
+        Rb, pp, W_gemm, None, total_features, vpos_flat,
+        [(vpos_flat, threshold)], threshold, T, Kc, None, None, top_k, Wc)
+    return cands[0], pp
+
+
+def _gathered_weight(W_gemm: MatmulWeight, idx: torch.Tensor) -> MatmulWeight:
+    """The exact GEMM's weights of the templates `idx` only: rows of the
+    K-major operand (a contiguous row gather), padded to 8 again."""
+    return MatmulWeight.from_nk(W_gemm.nk[idx.long()])
+
+
+def coarse_scores_gemm_flat_batched_sub2(
+    Rb: torch.Tensor, W_gemm: MatmulWeight, t_idx: torch.Tensor,
+    p_idx: torch.Tensor, T: int, Kc: int,
+) -> torch.Tensor:
+    """Exact coarse GEMM over the survivor grid only: (B, m_cap, n_cap)
+    int32 (dead slots hold real scores of whatever they index; the select
+    masks them)."""
+    return coarse_scores_gemm_flat_batched_pos(
+        Rb, _gathered_weight(W_gemm, t_idx), p_idx, T, Kc)
+
+
+def select_candidates_flat_sub2(
+    raw_sub: torch.Tensor,
+    total_features: torch.Tensor,
+    vpos_flat: torch.Tensor,
+    t_idx: torch.Tensor,
+    t_keep: torch.Tensor,
+    p_idx: torch.Tensor,
+    p_keep: torch.Tensor,
+    threshold: float,
+    top_k: int,
+    Wc: int,
+) -> CoarseMatches:
+    """Selection over the (B, m_cap, n_cap) survivor grid; ids map back
+    through t_idx (n_cap,) and p_idx (B, m_cap).  Returns (B, top_k)
+    CoarseMatches."""
+    B, m, n = raw_sub.shape
+    t_idx, p_idx = t_idx.long(), p_idx.long()
+    scale = _sim_scale(total_features[t_idx])
+    vpos_sub = vpos_flat[p_idx][:, :, t_idx] & t_keep & p_keep[..., None]
+    sim = torch.where(vpos_sub, raw_sub.to(torch.float32) * scale, -1.0)
+    vals, fidx = _topk_first_index(sim.reshape(B, m * n), min(top_k, m * n))
+    pos = torch.gather(p_idx, 1, torch.div(fidx, n, rounding_mode="floor"))
+    return _coarse_matches(vals, t_idx[fidx % n], pos, Wc, threshold)
+
+
+def coarse_scores_gemm_flat_batched_sub(
+    Rb: torch.Tensor, W_gemm: MatmulWeight, idx: torch.Tensor, T: int, Kc: int
+) -> torch.Tensor:
+    """Exact coarse GEMM over survivor TEMPLATES only, every position:
+    (B, Hc*Wc, n_cap) int32."""
+    return coarse_scores_gemm_flat_batched(Rb, _gathered_weight(W_gemm, idx), T, Kc)
+
+
+def select_candidates_flat_sub(
+    raw_sub: torch.Tensor,
+    total_features: torch.Tensor,
+    vpos_flat: torch.Tensor,
+    idx: torch.Tensor,
+    keep: torch.Tensor,
+    threshold: float,
+    top_k: int,
+    Wc: int,
+) -> CoarseMatches:
+    """Selection over survivor-compacted scores (B, Hc*Wc, n_cap):
+    template ids map back through `idx`, dead slots mask to -1.  Returns
+    (B, top_k) CoarseMatches."""
+    B, P, n = raw_sub.shape
+    idx = idx.long()
+    scale = _sim_scale(total_features[idx])
+    sim = torch.where(vpos_flat[:, idx] & keep, raw_sub.to(torch.float32) * scale, -1.0)
+    vals, fidx = _topk_first_index(sim.reshape(B, P * n), min(top_k, P * n))
+    return _coarse_matches(vals, idx[fidx % n],
+                           torch.div(fidx, n, rounding_mode="floor"), Wc, threshold)
+
+
+# ---------------------------------------------------------------------------
 # Several classes in one pass (the two-object path)
 # ---------------------------------------------------------------------------
 
@@ -853,12 +1328,57 @@ def match_pooled_multiclass(
     scale = torch.tensor((thr_min - 1e-3) * 0.04, dtype=torch.float32,
                          device=Rb.device)
     t_int = torch.ceil(scale * total_features.to(torch.float32) - 1e-4).to(torch.int32)
-    col = torch.arange(total_features.shape[0], device=Rb.device)
-    classes = [(vpos_flat & ((col >= lo) & (col < hi))[None, :], thr)
-               for (lo, hi), thr in zip(class_slices, thresholds)]
+    classes = _class_columns(vpos_flat, class_slices, thresholds)
     return _pooled_selects(Rb, pp, t_int, W_gemm, W_fine, total_features,
                            vpos_flat, classes, T, Kc, g, pool1, pool2, top_k,
                            Wc, r_cap)
+
+
+def _class_columns(vpos_flat: torch.Tensor, class_slices, thresholds):
+    """(vpos_c, threshold_c) per class: the validity mask restricted to the
+    class's own columns of the merged template axis."""
+    col = torch.arange(vpos_flat.shape[1], device=vpos_flat.device)
+    return [(vpos_flat & ((col >= lo) & (col < hi))[None, :], thr)
+            for (lo, hi), thr in zip(class_slices, thresholds)]
+
+
+def match_coarse_pruned_multiclass(
+    Rb: torch.Tensor,
+    W_gemm: MatmulWeight,
+    W_cell: MatmulWeight,
+    W_fine: MatmulWeight | None,
+    total_features: torch.Tensor,
+    vpos_flat: torch.Tensor,
+    class_slices: Sequence[tuple[int, int]],
+    thresholds: Sequence[float],
+    T: int,
+    Kc: int,
+    m_cap: int,
+    top_k: int,
+    Wc: int,
+    g: int | None = 4,
+    m2_cap: int | None = None,
+) -> tuple[list[CoarseMatches], PrunePlan]:
+    """match_coarse_pruned_fine_with_fallback over a MERGED bank: one
+    coarse prune and one fine re-test, both at min(thresholds) (a survivor
+    superset for every class), one survivor GEMM over the merged template
+    axis, then one select per class over its own columns at its own
+    threshold.  Fallbacks as in the single-class path.  `W_fine=None` or
+    `g=None` skips the fine stage.  Returns ([CoarseMatches (B, top_k) per
+    class], PrunePlan)."""
+    thr_min = min(thresholds)
+    if g is not None and T % g != 0:
+        raise ValueError(f"g={g} must divide T={T} (pass g=None to disable "
+                         "the fine stage)")
+    pp = prune_positions_batched(
+        Rb, W_cell, total_features, vpos_flat, thr_min, T, Kc, m_cap)
+    fine = g is not None and W_fine is not None
+    cands, _ = _positions_selects(
+        Rb, pp, W_gemm, W_fine, total_features, vpos_flat,
+        _class_columns(vpos_flat, class_slices, thresholds), thr_min, T, Kc,
+        g if fine else None,
+        _default_cap(m2_cap, m_cap, "m2_cap") if fine else None, top_k, Wc)
+    return cands, pp
 
 
 def merge_candidates_sorted(

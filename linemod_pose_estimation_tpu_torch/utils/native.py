@@ -7,9 +7,9 @@ compiles it on first use with g++ into its own library under
 that loads that path while another is still linking it reads a truncated
 file ("file too short").  Here each process compiles to a file of its own
 and publishes it with an atomic rename, so concurrent loaders (pytest
-workers, say) see either no library or a whole one.  This is the port's
-only bank reader: the PyYAML route is not ported, so a missing toolchain
-is an error at load time rather than a silent fallback.
+workers, say) see either no library or a whole one.  It is the bank
+readers' first route; where it cannot build, `available()` is false and
+``models/templates.py`` reads through PyYAML instead.
 """
 
 from __future__ import annotations
@@ -21,22 +21,26 @@ import subprocess
 import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SOURCE = os.path.join(_REPO, "native", "bank_loader.cpp")
-_SO_PATH = os.path.join(_REPO, "build", "native", "liblpe_native.so")
+NATIVE_DIR = os.path.join(_REPO, "native")
+BUILD_DIR = os.path.join(_REPO, "build", "native")
+_SOURCE = os.path.join(NATIVE_DIR, "bank_loader.cpp")
+_SO_PATH = os.path.join(BUILD_DIR, "liblpe_native.so")
 _CXXFLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")  # as native/Makefile
 
 _lib = None
 _tried = False
 
 
-def _build(so_path: str) -> None:
-    """Compile the loader to a per-process file, then rename it onto
-    `so_path` (atomic on one file system)."""
+def build_shared(so_path: str, source: str, extra: tuple[str, ...] = (),
+                 timeout: int = 120) -> None:
+    """Compile `source` to a per-process file, then rename it onto
+    `so_path` (atomic on one file system).  `extra` follows the source on
+    g++'s command line (include paths, libraries)."""
     os.makedirs(os.path.dirname(so_path), exist_ok=True)
     tmp = f"{so_path}.{os.getpid()}.tmp"
     try:
-        subprocess.run(["g++", *_CXXFLAGS, "-o", tmp, _SOURCE],
-                       check=True, capture_output=True, timeout=120)
+        subprocess.run(["g++", *_CXXFLAGS, "-o", tmp, source, *extra],
+                       check=True, capture_output=True, timeout=timeout)
         os.replace(tmp, so_path)
     finally:
         if os.path.exists(tmp):
@@ -50,7 +54,7 @@ def _get_lib():
     _tried = True
     if not os.path.exists(_SO_PATH):
         try:
-            _build(_SO_PATH)
+            build_shared(_SO_PATH, _SOURCE)
         except (OSError, subprocess.SubprocessError):
             return None
     try:

@@ -1,6 +1,7 @@
 """The CUDA kernels K1, K2 (also at B=1, the port of K2b), K3, K4, K5 and
-the kernel paths of BatchedMatcher, the K5 refiner,
-MultiClassBatchedMatcher and DetectionPipeline against their plain
+the kernel paths of BatchedMatcher (pooled, positions, two_axis, the
+RGB-only bank), the K5 refiner, MultiClassBatchedMatcher (pooled and its
+default mode) and DetectionPipeline against their plain
 PyTorch versions, on a card.  Every test here is
 marked requires_cuda and skips without a CUDA device; the file imports no
 JAX, so it runs on a machine with a card and no JAX:
@@ -222,6 +223,109 @@ def test_batched_matcher_kernels_equal_plain(cuda):
     want = BatchedMatcher(td, cid, 70.0, B, plain=True, **kw).match_batch(rgbs, deps)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# keyword arguments of BatchedMatcher(prune=True) -> (coarse, fine) overflow;
+# the caps of 1 put B * m_cap rows under torch._int_mm's m > 16
+PRUNE_CASES = {
+    "positions": ({}, False, False),
+    "positions_fine_overflow": (dict(fine_pos_cap=1), False, True),
+    "positions_coarse_overflow": (dict(prune_pos_cap=1), True, False),
+    "positions_no_fine_stage": (dict(fine_g=None), False, None),
+    "two_axis": (dict(prune_mode="two_axis"), False, None),
+    "two_axis_overflow": (dict(prune_mode="two_axis", prune_cap=3, prune_pos_cap=2),
+                          True, None),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", list(PRUNE_CASES))
+def test_prune_modes_on_the_card(cuda, case):
+    """The positions and two_axis modes on the card: the kernel path equals
+    the plain path there, and both equal the plain path on the CPU (every
+    Matches slot, PrunePlan and FinePlan), so cuBLASLt's int8 GEMMs and the
+    card's top-k give the host's plans; K1-K3 launch."""
+    kw, coarse_of, fine_of = PRUNE_CASES[case]
+    td = Detector.read(BANK)
+    cid = td.class_ids[0]
+    bank = td.bank(cid)
+    sub = Detector(bank.params)
+    sub.attach_bank(TemplateBank(cid, bank.params,
+                                 [bank.templates[i] for i in S.CROP_BANK_SUBSET]))
+    rgbs, deps = S.golden_crops()
+    B = rgbs.shape[0]
+    make = lambda **k: BatchedMatcher(sub, cid, 70.0, B, top_k=64, prune=True, **kw, **k)
+    mk, mp, mc = make(device=cuda), make(device=cuda, plain=True), make(device="cpu")
+    _build.reset_launch_counts()
+    got = mk.match_batch(rgbs, deps)
+    counts = dict(_build.launch_counts)
+    assert (counts["quantize_cg"], counts["spread_response"], counts["walk_scores"]) == (2, 4, 1)
+    for m in (mp, mc):
+        want = m.match_batch(rgbs, deps)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu())
+        for a, b in zip(mk.last_prune, m.last_prune):
+            assert torch.equal(a.cpu(), b.cpu())
+        assert (mk.last_fine is None) == (m.last_fine is None) == (fine_of is None)
+        if fine_of is not None:
+            for a, b in zip(mk.last_fine, m.last_fine):
+                assert torch.equal(a.cpu(), b.cpu())
+    assert bool(mk.last_prune.overflow) == coarse_of
+    assert fine_of is None or bool(mk.last_fine.overflow) == fine_of
+    assert int(got.valid.sum()) > 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kw", [{}, dict(prune_pos_cap=2, fine_pos_cap=2)],
+                         ids=["defaults", "coarse_overflow"])
+def test_multiclass_positions_on_the_card(cuda, kw):
+    """MultiClassBatchedMatcher's default mode: kernel path == plain path
+    on the card == the CPU, per class, and the PrunePlan."""
+    td = Detector.read(BANK)
+    cid = td.class_ids[0]
+    bank = td.bank(cid)
+    det = Detector(bank.params)
+    for c, ids in (("a", S.CROP_MATCHING[::2] + list(range(1, 2652, 211))),
+                   ("b", S.CROP_MATCHING[1::2] + list(range(60, 2652, 173)))):
+        det.attach_bank(TemplateBank(c, bank.params, [bank.templates[i] for i in ids]))
+    rgbs, deps = S.golden_crops()
+    B = rgbs.shape[0]
+    make = lambda **k: MultiClassBatchedMatcher(det, ["a", "b"], [70.0, 72.0], B,
+                                                top_k=64, **kw, **k)
+    mk, mp, mc = make(device=cuda), make(device=cuda, plain=True), make(device="cpu")
+    got = mk.match_batch(rgbs, deps)
+    for m in (mp, mc):
+        want = m.match_batch(rgbs, deps)
+        for c in ("a", "b"):
+            for a, b in zip(got[c], want[c]):
+                assert torch.equal(a.cpu(), b.cpu())
+        for a, b in zip(mk.last_prune, m.last_prune):
+            assert torch.equal(a.cpu(), b.cpu())
+    assert bool(mk.last_prune.overflow) == bool(kw)
+    assert int(got["a"].valid.sum()) > 0 and int(got["b"].valid.sum()) > 0
+
+
+@pytest.mark.requires_cuda
+def test_rgb_only_bank_on_the_card(cuda):
+    """The one-modality bank (C = 8): K1 x2 and K2 x2 only, pooled and
+    positions equal to their plain paths."""
+    td = Detector.read("data/boxNew_full_templates.yml.gz")
+    cid = td.class_ids[0]
+    bank = td.bank(cid)
+    sub = Detector(bank.params)
+    sub.attach_bank(TemplateBank(cid, bank.params,
+                                 [bank.templates[i] for i in sorted(S.CROP_BANK_SUBSET)]))
+    rgbs, _ = S.golden_crops()
+    for kw in (dict(prune_mode="pooled"), dict()):
+        make = lambda **k: BatchedMatcher(sub, cid, 60.0, 2, top_k=64, prune=True,
+                                          device=cuda, **kw, **k)
+        _build.reset_launch_counts()
+        got = make().match_batch(rgbs)
+        counts = dict(_build.launch_counts)
+        assert (counts["quantize_cg"], counts["spread_response"]) == (2, 2)
+        for a, b in zip(got, make(plain=True).match_batch(rgbs)):
+            assert torch.equal(a, b)
+        assert int(got.valid.sum()) > 0
 
 
 @pytest.mark.requires_cuda

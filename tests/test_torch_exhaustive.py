@@ -85,10 +85,15 @@ def test_exhaustive_batched_matcher_and_k5_chain(detectors):
 
 
 def test_other_prune_modes_are_not_ported(detectors):
+    """Every prune mode of the reference builds (tests/test_torch_prune_
+    serving.py holds each to it); what is not a mode of the reference,
+    and `pooled` without `prune`, raises."""
     _, td, cid = detectors
     for mode in ("positions", "two_axis"):
-        with pytest.raises(NotImplementedError, match=mode):
-            BatchedMatcher(td, cid, THR, 2, prune=True, prune_mode=mode, device="cpu")
+        m = BatchedMatcher(td, cid, THR, 2, prune=True, prune_mode=mode, device="cpu")
+        assert m.prune_mode == mode and m.last_prune is None
+    with pytest.raises(ValueError, match="prune_mode='rows'"):
+        BatchedMatcher(td, cid, THR, 2, prune=True, prune_mode="rows", device="cpu")
     with pytest.raises(ValueError, match="requires prune=True"):
         BatchedMatcher(td, cid, THR, 2, prune_mode="pooled", device="cpu")
 

@@ -206,9 +206,15 @@ def test_multiclass_batched_matcher(two_class_detectors, pools):
 
 
 def test_multiclass_positions_mode_is_not_ported(two_class_detectors):
+    """The default `positions` mode builds (tests/test_torch_prune_serving.py
+    holds it to the reference); `two_axis`, which the reference's
+    multi-class matcher does not have, raises."""
     _, td = two_class_detectors
-    with pytest.raises(NotImplementedError, match="positions"):
-        MultiClassBatchedMatcher(td, ["a", "b"], 70.0, 2, device="cpu")
+    m = MultiClassBatchedMatcher(td, ["a", "b"], 70.0, 2, device="cpu")
+    assert m.prune_mode == "positions" and m.fine_pos_cap == 128
+    with pytest.raises(ValueError, match="two_axis"):
+        MultiClassBatchedMatcher(td, ["a", "b"], 70.0, 2, prune_mode="two_axis",
+                                 device="cpu")
 
 
 @pytest.mark.slow

@@ -1,6 +1,6 @@
 """Where a batched path of the port spends its time, on one NVIDIA GPU.
 
-    python tools/profile_torch_slice.py [--path pooled|k5|two_object]
+    python tools/profile_torch_slice.py [--path pooled|positions|two_axis|k5|two_object]
                                         [--batch 32] [--iters 3] [--top 25]
 
 Runs chip_smoke.py's B=32 bin-picking batch over the RGB-D bank tiled to
@@ -8,6 +8,11 @@ Runs chip_smoke.py's B=32 bin-picking batch over the RGB-D bank tiled to
 
 - `pooled` (phase 2b): BatchedMatcher(**slice_settings(B)) — candidates
   from the pooled matcher, then the walk;
+- `positions`, `two_axis` (phase 9): BatchedMatcher(prune=True,
+  prune_mode=..., top_k=128) at the default caps — candidates from the
+  per-frame-cap matcher, then the walk over every slot; `positions` also
+  prints the matcher's own stages (the coarse plan, the fine bound and
+  plan, the exact survivor GEMM, the select), each bracketed by a sync;
 - `k5` (phase 7): BatchedMatcher(prune=False, top_k=128) — candidates
   from the exhaustive GEMM and select, then the K5 window refiner
   (refine_candidates_pallas_batched);
@@ -37,7 +42,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("pooled", "k5", "two_object"), default="pooled")
+    ap.add_argument("--path", default="pooled",
+                    choices=("pooled", "positions", "two_axis", "k5", "two_object"))
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
@@ -68,6 +74,11 @@ def main() -> int:
     deps = torch.from_numpy(deps_np).to(dev)
     if args.path == "pooled":
         m = BatchedMatcher(det, cid, 91.0, B, device=dev, **slice_settings(B))
+        candidates = lambda: m.candidates(rgbs, deps)
+        refine = lambda c: m.refine(*c)
+    elif args.path in ("positions", "two_axis"):
+        m = BatchedMatcher(det, cid, 91.0, B, top_k=128, prune=True,
+                           prune_mode=args.path, device=dev)
         candidates = lambda: m.candidates(rgbs, deps)
         refine = lambda c: m.refine(*c)
     elif args.path == "k5":
@@ -110,6 +121,46 @@ def main() -> int:
 
     for _ in range(args.iters):
         print(json.dumps({"path": args.path, "stages": stages()}), flush=True)
+
+    def positions_stages():
+        """The positions matcher's stages on the batch's level-1 responses,
+        as match_coarse_pruned_fine_with_fallback runs them when nothing
+        overflows."""
+        _, R1 = M.preprocess_frames_batched(rgbs, deps, m.T0, m.T1, True, m.weak)
+        w, count, thr = m.weights, m.feats1.count, m.threshold - 5.0
+        Wc = R1.shape[3] // m.T1
+        vpos = m._vpos_flat(R1.shape[2] // m.T1, Wc)
+        out, state = {}, {}
+
+        def stage(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state[name] = fn()
+            torch.cuda.synchronize()
+            out[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+
+        stage("coarse_plan", lambda: M.prune_positions_batched(
+            R1, w.W_cell, count, vpos, thr, m.T1, m.Kc1, m.prune_pos_cap))
+        pp = state["coarse_plan"]
+        stage("fine_bound", lambda: M.fine_ub_at_survivors(
+            R1, pp.p_idx, w.W_fine, m.T1, m.Kc1, m.fine_g))
+        stage("fine_plan", lambda: M.fine_plan_from_ub(
+            state["fine_bound"], count, vpos, pp.p_idx, pp.p_keep, thr, m.fine_pos_cap))
+        fp = state["fine_plan"]
+        stage("survivor_gemm", lambda: M.coarse_scores_gemm_flat_batched_pos(
+            R1, w.W_gemm, fp.p_idx, m.T1, m.Kc1))
+        stage("select", lambda: M.select_candidates_flat_pos(
+            state["survivor_gemm"], count, vpos, fp.p_idx.long(), fp.p_keep, thr,
+            m.top_k, Wc))
+        out["coarse_survivors"] = int(pp.m_survivors.sum())
+        out["fine_survivors"] = int(fp.m_survivors.sum())
+        out["rows"] = dict(fine_bound=int(pp.p_idx.numel()), survivor_gemm=int(fp.p_idx.numel()))
+        return out
+
+    if args.path == "positions":
+        for _ in range(args.iters):
+            print(json.dumps({"path": args.path, "matcher_stages": positions_stages()}),
+                  flush=True)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
