@@ -2,8 +2,8 @@
 fields in (as ``np.asarray`` gives them from the reference's objects), the
 port's objects out.  Lets a test feed both packages the identical state:
 banks (per-template features, padded arrays, GEMM weights), template pose
-metadata, mesh triangles, match sets and the pruning plans (which also go
-back to numpy, for golden files)."""
+metadata, mesh triangles, match sets, the pruning plans, ICP results and
+local-descriptor poses (which also go back to numpy, for golden files)."""
 
 from __future__ import annotations
 
@@ -146,9 +146,29 @@ def prune_result_from_numpy(idx, keep, n_survivors, overflow,
                        _t(n_survivors, torch.int32, device), _t(overflow, torch.bool, device))
 
 
+def icp_result_from_numpy(transform, fitness, num_inliers, iterations, converged,
+                          device=DEFAULT_DEVICE):
+    """ICPResult fields as numpy -> the port's ICPResult."""
+    from .ops.icp import ICPResult
+
+    return ICPResult(_t(transform, torch.float32, device), _t(fitness, torch.float32, device),
+                     _t(num_inliers, torch.int32, device), _t(iterations, torch.int32, device),
+                     _t(converged, torch.bool, device))
+
+
+def local_descriptor_pose_from_numpy(pose, votes, n_correspondences, valid,
+                                     device=DEFAULT_DEVICE):
+    """LocalDescriptorPose fields as numpy -> the port's record."""
+    from .ops.local_descriptor import LocalDescriptorPose
+
+    return LocalDescriptorPose(_t(pose, torch.float32, device), _t(votes, torch.int32, device),
+                               _t(n_correspondences, torch.int32, device),
+                               _t(valid, torch.bool, device))
+
+
 def record_to_numpy(record, prefix: str = "") -> dict[str, np.ndarray]:
     """A record of tensors (Matches, PrunePlan, FinePlan, PruneResult,
-    PooledStats, ...) -> {prefix + field: numpy array}: the form the golden
+    PooledStats, ICPResult, LocalDescriptorPose, ...) -> {prefix + field: numpy array}: the form the golden
     files hold, and the reference's records take through np.asarray."""
     return {prefix + name: a.detach().cpu().numpy()
             for name, a in record._asdict().items()}

@@ -1,15 +1,17 @@
 """DetectionPipeline: the full per-frame flow of the reference's
 detect_cb behind one object — the port of
-``linemod_pose_estimation_tpu/models/pipeline.py`` (default cascade;
-``draw_response`` is not ported yet).
+``linemod_pose_estimation_tpu/models/pipeline.py`` (``draw_response`` is
+not ported yet).
 
     pipeline = DetectionPipeline(detector, metadata, globals_, mesh, params)
     detections = pipeline.detect(rgb, cloud, depth_mm=depth)
 
 Stage order: LINEMOD match (Detector.match_raw: K1, K2, K3) -> vote
 clustering -> IoU NMS -> per-cluster rough pose with a re-render (K4)
--> two-stage ICP -> verification -> canonicalization.  Everything runs on
-the detector's device; the cluster lanes run as one batch.
+-> ICP -> verification -> canonicalization; with
+``CascadeParams.nms_after_pose`` the NMS comes after the pose, over twice
+the pose slots, ranked by verification.  Everything runs on the
+detector's device; the cluster lanes run as one batch.
 """
 
 from __future__ import annotations
@@ -63,7 +65,6 @@ class DetectionPipeline:
         self.device = detector.device
         self.class_id = class_id or detector.class_ids[0]
         self.params = params or CC.CascadeParams()
-        CC.check_ported(self.params)
         self.metadata = metadata
         self.globals = globals_
         dev = self.device
@@ -78,22 +79,48 @@ class DetectionPipeline:
             [0, globals_.focal_length_y * rh / globals_.height, rh / 2.0],
             [0, 0, 1.0],
         ])
+        # The sensor frame's own intrinsics: the organized scene cloud is
+        # frame-sized, so its normals must not take K_render's scaled focals.
+        self.K_frame = f32([
+            [globals_.focal_length_x, 0, globals_.width / 2.0],
+            [0, globals_.focal_length_y, globals_.height / 2.0],
+            [0, 0, 1.0],
+        ])
         self.q_bank = geo.quat_from_matrix(f32(metadata.R))
         self.T_bank = f32(metadata.T)
         self.D_bank = f32(metadata.D)
         self.Od_bank = f32(metadata.Ori_dist)
         self.Rect_bank = torch.as_tensor(np.asarray(metadata.Rect, np.int32), device=dev)
 
+    def scene_normals(self, cloud: torch.Tensor) -> torch.Tensor | None:
+        """Per-pixel scene normals for point-to-plane ICP, once per frame,
+        from the organized cloud's depth; None for the other variants."""
+        if self.params.icp_variant != "point_to_plane":
+            return None
+        from ..ops.verification import depth_normals
+
+        z = cloud[..., 2]
+        return depth_normals(torch.where(torch.isfinite(z), z, 0.0) * 1000.0, self.K_frame)
+
     def _pose_stage(self, matches: M.Matches, cloud: torch.Tensor):
         p = self.params
+        scene_normals = self.scene_normals(cloud)
         clusters = CC.cluster_matches(
             matches, self.Od_bank, self.Rect_bank, self.globals.radius_min,
             self.globals.radius_step, p.clustering_step, p.cluster_filter_thresh,
             p.max_cells, p.members_cap)
-        keep = CC.nms_iou(clusters, p.iou_threshold)
+        if p.nms_after_pose:
+            # Pose and verify every top cluster first, over twice the pose
+            # slots (near-duplicate clusters of one strong object must not
+            # crowd a weaker second instance out), then suppress by IoU
+            # ranked by verification: a symmetric flip can out-score the
+            # true orientation but not out-verify it.
+            keep, n_slots = clusters.valid, 2 * p.max_clusters
+        else:
+            keep, n_slots = CC.nms_iou(clusters, p.iou_threshold), p.max_clusters
         alive = clusters.valid & keep
         order = torch.argsort(-torch.where(alive, clusters.score, -torch.inf),
-                              stable=True)[:p.max_clusters]
+                              stable=True)[:n_slots]
         midx = clusters.member_idx[order].long()  # (C, M)
         tids = matches.template_id[midx].long()
         poses = CC.rough_pose_and_refine(
@@ -101,7 +128,13 @@ class DetectionPipeline:
             matches.x[midx].to(torch.float32), matches.y[midx].to(torch.float32),
             matches.similarity[midx], clusters.member_valid[order], alive[order],
             clusters.score[order], cloud=cloud, triangles=self.triangles,
-            K_render=self.K_render, params=p, render_wh=self.render_wh)
+            K_render=self.K_render, params=p, render_wh=self.render_wh,
+            scene_normals=scene_normals)
+        if p.nms_after_pose:
+            keep2 = CC.nms_rects(
+                poses.rect, poses.hyp_sim + poses.hv_rate - 1e4 * poses.icp_fitness,
+                poses.valid, p.iou_threshold)
+            poses = poses._replace(valid=poses.valid & keep2)
         return poses, clusters, keep, order
 
     def detect(self, rgb, cloud, threshold: float = 91.0, depth_mm=None,

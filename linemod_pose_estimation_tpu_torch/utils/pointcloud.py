@@ -120,10 +120,13 @@ def scatter_rows(src: torch.Tensor, pos: torch.Tensor, cap: int,
 
 
 def voxel_grid_filter(points: torch.Tensor, valid: torch.Tensor, leaf: float,
-                      cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+                      cap: int, aux: torch.Tensor | None = None):
     """PCL VoxelGrid: one output point per occupied voxel, at the centroid
     of its members, in first-member order.  Grouping by an (N, N) voxel-id
-    equality matrix and one matmul for the sums, as the reference does."""
+    equality matrix and one matmul for the sums, as the reference does.
+    `aux` (..., N, 3) (point normals, for point-to-plane ICP) is averaged
+    per voxel the same way, zero in the unused slots: returns (pts, valid,
+    aux_out) then, else (pts, valid)."""
     N = points.shape[-2]
     dev = points.device
     vid = _voxel_hash(pad_cloud(points, valid), leaf)
@@ -131,14 +134,17 @@ def voxel_grid_filter(points: torch.Tensor, valid: torch.Tensor, leaf: float,
     earlier = torch.ones((N, N), dtype=torch.bool, device=dev).tril(-1)
     first = valid & ~(eq & earlier).any(dim=-1)
     cnts = eq.sum(dim=-1).to(torch.float32).clamp(min=1.0)[..., None]
-    centroids = torch.matmul(eq.to(torch.float32),
-                             torch.where(valid[..., None], points, 0.0)) / cnts
+    eqf = eq.to(torch.float32)
+    centroids = torch.matmul(eqf, torch.where(valid[..., None], points, 0.0)) / cnts
     f = first.to(torch.int64)
     pos = torch.where(first, torch.cumsum(f, dim=-1) - 1, cap)
     ok = torch.arange(cap, device=dev) < f.sum(dim=-1, keepdim=True)
     out_pts = torch.where(ok[..., None], scatter_rows(centroids, pos, cap, SENTINEL),
                           SENTINEL)
-    return out_pts, ok
+    if aux is None:
+        return out_pts, ok
+    a_cent = torch.matmul(eqf, torch.where(valid[..., None], aux, 0.0)) / cnts
+    return out_pts, ok, torch.where(ok[..., None], scatter_rows(a_cent, pos, cap, 0.0), 0.0)
 
 
 def voxel_occupancy_rate(model_pts: torch.Tensor, model_valid: torch.Tensor,

@@ -2,7 +2,9 @@
 the kernel paths of BatchedMatcher (pooled, positions, two_axis, the
 RGB-only bank), the K5 refiner, MultiClassBatchedMatcher (pooled and its
 default mode) and DetectionPipeline against their plain
-PyTorch versions, on a card.  Every test here is
+PyTorch versions, on a card; then the cascade's non-default options (the
+ICP variants, scene normals, the in-plane sweep, the local-descriptor pose,
+detect in six configurations) on the card against the CPU and the golden.  Every test here is
 marked requires_cuda and skips without a CUDA device; the file imports no
 JAX, so it runs on a machine with a card and no JAX:
 
@@ -436,3 +438,151 @@ def test_detect_on_the_card_launches_every_kernel(cuda):
     assert len(dets) >= 1
     for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
         assert _build.launch_counts[k] > 0, k
+
+
+# ---------------------------------------------------------------------------
+# The cascade's non-default options: the same PyTorch code on the card and on
+# the CPU (no kernel of their own; the detect launches K1-K4).  Tolerances:
+# integers and flags equal, floats within the figure each test states (the
+# card's matmuls, solves and eigh sum in another order than the CPU's).
+# ---------------------------------------------------------------------------
+
+
+def _sweep_clouds(stem, device):
+    with np.load(f"data/{stem}.npz") as z:
+        return [torch.from_numpy(z[k]).to(device)
+                for k in ("model", "mvalid", "scene", "snorm", "svalid")]
+
+
+def _perturbed(model, mvalid, deg=3.0, shift=0.003):
+    """The model rotated about z through its centroid and shifted."""
+    th = np.deg2rad(deg)
+    R = torch.tensor([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]],
+                     dtype=torch.float32, device=model.device)
+    c = model[mvalid].mean(0)
+    return torch.where(mvalid[:, None], (model - c) @ R.T + c + shift, model)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("variant", ["plane", "lm", "schedule"])
+def test_icp_variants_on_the_card_equal_cpu(cuda, variant):
+    """Two lanes (the two real clouds, perturbed) through each new ICP on
+    the card and on the CPU: transforms within 1e-4, iterations and flags
+    equal, inliers within 2.  LM's accept test flips on an ulp of the cost
+    and its epsilon of 1e-8 sits inside nearest-neighbour jitter, so its
+    passes may end up to 3 iterations apart."""
+    from linemod_pose_estimation_tpu_torch.ops import icp as TI
+
+    def run(device):
+        lanes = [_sweep_clouds(s, device) for s in ("sweep_view00_clouds",
+                                                    "sweep_view45_clouds")]
+        m, mv, s, n, sv = (torch.stack(a) for a in zip(*lanes))
+        m = torch.stack([_perturbed(a, b) for a, b in zip(m, mv)])
+        if variant == "plane":
+            return TI.icp_two_stage_plane(m, mv, s, n, sv, coarse_iterations=40)
+        if variant == "lm":
+            return TI.icp_lm(m, mv, s, sv, max_iterations=50)
+        return TI.icp_schedule(m, mv, s, sv, ((30, 0.05, 0.02, 1e-5), (10, 0.02, 0.01, 1e-6)))
+
+    got, want = run(cuda), run("cpu")
+    assert got.transform.is_cuda
+    np.testing.assert_allclose(got.transform.cpu().numpy(), want.transform.numpy(), atol=1e-4)
+    slack = 3 if variant == "lm" else 0
+    assert int((got.iterations.cpu() - want.iterations).abs().max()) <= slack
+    assert torch.equal(got.converged.cpu(), want.converged)
+    assert int((got.num_inliers.cpu() - want.num_inliers).abs().max()) <= 2
+
+
+@pytest.mark.requires_cuda
+def test_depth_normals_on_the_card_equal_cpu(cuda):
+    from linemod_pose_estimation_tpu_torch.ops import verification as TV
+
+    with np.load(CASCADE_GOLDEN) as z:
+        dep = torch.from_numpy(z["depth_mm"][0])
+    K = torch.tensor([[572.4, 0, 320.0], [0, 573.6, 240.0], [0, 0, 1]])
+    got, want = TV.depth_normals(dep.to(cuda), K.to(cuda)).cpu(), TV.depth_normals(dep, K)
+    assert torch.equal(got.abs().sum(-1) > 0, want.abs().sum(-1) > 0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-6)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("stem,true_deg", [("sweep_view45_clouds", 3.02),
+                                           ("sweep_view00_clouds", 1.35)])
+def test_inplane_sweep_on_the_card(cuda, stem, true_deg):
+    """The sweep repair on the real tail views: applied, within 0.5
+    degrees of the truth, T_fix within 2e-5 of the CPU's."""
+    from linemod_pose_estimation_tpu_torch.models import cascade as TC
+
+    on = lambda dev: TC.inplane_sweep_fix(*_sweep_clouds(stem, dev),
+                                          torch.tensor(True, device=dev), 6.0, 0.7)
+    (T, applied), (Tc, applied_c) = on(cuda), on("cpu")
+    assert bool(applied) and bool(applied_c)
+    np.testing.assert_allclose(T.cpu().numpy(), Tc.numpy(), atol=2e-5)
+    R = T.cpu().numpy()[:3, :3]
+    ang = np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1)))
+    assert abs(ang - true_deg) < 0.5
+
+
+@pytest.mark.requires_cuda
+def test_local_descriptor_on_the_card_equals_cpu(cuda):
+    """The local-descriptor pose of a rigidly moved real cloud: keypoints
+    and the flag equal to the CPU's, votes and correspondences within 2 (a
+    descriptor distance at the 0.25 gate, or a support point on a bin edge,
+    can fall either side: 67 against 66 correspondences measured), the pose
+    within 1e-4 and on the planted motion."""
+    from linemod_pose_estimation_tpu_torch.ops import local_descriptor as TL
+
+    def run(device):
+        model, mv, *_ = _sweep_clouds("sweep_view00_clouds", device)
+        scene = _perturbed(model, mv, deg=20.0, shift=0.01)
+        ki, kv = TL.select_keypoints(model, mv, 0.008, 96)
+        return ki, kv, TL.get_pose_by_local_descriptor(
+            model, mv, scene, mv, keypoint_leaf=0.008, k_cap=96), model, mv, scene
+
+    (ki, kv, got, model, mv, scene), (ki_c, kv_c, want, *_) = run(cuda), run("cpu")
+    assert torch.equal(ki.cpu(), ki_c) and torch.equal(kv.cpu(), kv_c)
+    assert abs(int(got.votes) - int(want.votes)) <= 2
+    assert abs(int(got.n_correspondences) - int(want.n_correspondences)) <= 2
+    assert bool(got.valid) and bool(want.valid)
+    np.testing.assert_allclose(got.pose.cpu().numpy(), want.pose.numpy(), atol=1e-4)
+    moved = model[mv] @ got.pose[:3, :3].T + got.pose[:3, 3]
+    assert float((moved - scene[mv]).abs().max()) < 0.005
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("config", ["accuracy", "accuracy_refine", "nonlinear", "roi_center",
+                                    "distance_offset", "local_descriptor"])
+def test_detect_options_on_the_card_equal_the_golden(cuda, config):
+    """DetectionPipeline.detect at full width in each non-default
+    configuration on golden frame 0: the ClusterSet, valid flags and rects
+    equal to the JAX reference's, poses within 0.01 degrees / 0.01 mm (LM
+    ICP within 0.05 / 0.05: its passes end elsewhere on the plateau of its
+    1e-8 epsilon; 0.027 / 0.035 measured), K1-K4 launched."""
+    from linemod_pose_estimation_tpu_torch.models import cascade as TC
+    from linemod_pose_estimation_tpu_torch.utils.geometry import rotation_geodesic_deg
+
+    with np.load(CASCADE_GOLDEN) as z:
+        g = {k: z[k] for k in ("rgb", "depth_mm", "threshold")}
+    with np.load("tests/data/torch_cascade_options_golden.npz") as z:
+        og = {k[len(config) + 1:]: z[k] for k in z.files if k.startswith(config + "_")}
+    options = TC.GOLDEN_OPTION_SETS[config][0]
+    pipe = DetectionPipeline.from_files(BANK, PARAMS, S.cuboid_mesh(),
+                                        TC.CascadeParams(**options), device=cuda)
+    dep = torch.from_numpy(g["depth_mm"][0]).to(cuda)
+    cloud = TP.depth_to_cloud(TP.true_div(dep, 1000.0), pipe.K_render)
+    _build.reset_launch_counts()
+    dets, st = pipe.detect(g["rgb"][0], cloud, threshold=float(g["threshold"]),
+                           depth_mm=dep, return_stages=True)
+    for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
+        assert _build.launch_counts[k] > 0, k
+    for name in ("count", "bbox", "valid", "member_idx", "member_valid"):
+        np.testing.assert_array_equal(getattr(st.clusters, name).cpu().numpy(),
+                                      og["c_" + name][0], err_msg=name)
+    np.testing.assert_array_equal(st.poses.valid.cpu().numpy(), og["p_valid"][0])
+    np.testing.assert_array_equal(st.poses.rect.cpu().numpy(), og["p_rect"][0])
+    assert len(dets) >= 1
+    for lane in np.nonzero(og["p_valid"][0])[0]:
+        got, want = st.poses.pose[lane].cpu().double(), torch.tensor(og["p_pose"][0][lane]).double()
+        tol = 0.05 if config == "nonlinear" else 0.01
+        assert float(rotation_geodesic_deg(got[:3, :3], want[:3, :3])) <= tol
+        assert 1000.0 * float((got[:3, 3] - want[:3, 3]).norm()) <= tol

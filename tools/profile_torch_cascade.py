@@ -1,17 +1,26 @@
 """Where one full-width DetectionPipeline.detect spends its time, on one
 NVIDIA GPU.
 
-    python tools/profile_torch_cascade.py [--iters 5] [--top 20]
+    python tools/profile_torch_cascade.py [--iters 5] [--top 20] [--accuracy]
+        [--refine-rounds N] [--icp-variant two_stage|point_to_plane|nonlinear]
+        [--position-strategy surface_centroid|roi_center|distance_offset|local_descriptor]
 
 Runs the chip_smoke.py phase 6 configuration (the 2652-template RGB-D
 bank and its params, the cuboid stand-in for the boxNew mesh, default
-CascadeParams, threshold 91) on frame 0 of
+CascadeParams, threshold 91), or with the options given phase 10's
+(`--accuracy`: point-to-plane ICP, two orientation hypotheses, NMS after
+the pose; the other options override single fields), on frame 0 of
 tests/data/torch_cascade_golden.npz: first host-clock stage times, each
 stage function wrapped so that it synchronizes before and after (so the
 stage times include one sync each and sum to more than an untraced
 detect); then a torch.profiler trace of `--iters` detects: device time by
 kernel and the device busy share (traced kernel time over the untraced
-detect time).  Prints JSON lines; needs CUDA.
+detect time).  With the options the stages include the scene normals, the
+point-to-plane or LM ICP, the in-plane sweep, the local-descriptor pose,
+the hypothesis selection (both hypotheses run as lanes of one batch: the
+line gives the lane count) and the NMS after the pose; a refinement round
+shows as second calls of render, scene extraction, the filters and ICP.
+Prints JSON lines; needs CUDA.
 """
 
 from __future__ import annotations
@@ -30,6 +39,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--accuracy", action="store_true",
+                    help="the reference's accuracy configuration")
+    ap.add_argument("--refine-rounds", type=int, default=None)
+    ap.add_argument("--icp-variant", default=None)
+    ap.add_argument("--position-strategy", default=None)
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -40,15 +54,22 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from linemod_pose_estimation_tpu_torch.models import cascade as CC
     from linemod_pose_estimation_tpu_torch.models.pipeline import DetectionPipeline
+    from linemod_pose_estimation_tpu_torch.ops import local_descriptor as TL
     from linemod_pose_estimation_tpu_torch.ops import match as M
+    from linemod_pose_estimation_tpu_torch.ops import verification as TV
     from linemod_pose_estimation_tpu_torch.utils import pointcloud as TP
     from linemod_pose_estimation_tpu_torch.utils.scenes import cuboid_mesh
 
     dev = torch.device("cuda")
+    options = dict(CC.ACCURACY_OPTIONS) if args.accuracy else {}
+    for name in ("refine_rounds", "icp_variant", "position_strategy"):
+        if getattr(args, name) is not None:
+            options[name] = getattr(args, name)
     pipe = DetectionPipeline.from_files(
         os.path.join(REPO, "data", "boxNew_rgbd_templates.yml.gz"),
         os.path.join(REPO, "data", "boxNew_rgbd_params.yml.gz"), cuboid_mesh(),
-        device=dev)
+        CC.CascadeParams(**options), device=dev)
+    print(json.dumps({"options": options}), flush=True)
     with np.load(os.path.join(REPO, "tests", "data", "torch_cascade_golden.npz")) as z:
         rgb, dep, thr = z["rgb"][0], z["depth_mm"][0], float(z["threshold"])
     dep_t = torch.from_numpy(dep).to(dev)
@@ -58,7 +79,7 @@ def main() -> int:
 
     # -- stage times: wrap each stage function with synchronizing timers --
     times: dict[str, list[float]] = defaultdict(list)
-    icp_iters: list[int] = []
+    icp_iters: list[list[int]] = []  # per ICP call of a detect, per lane
 
     def timed(mod, name, label):
         fn = getattr(mod, name)
@@ -69,8 +90,8 @@ def main() -> int:
             out = fn(*a, **k)
             torch.cuda.synchronize()
             times[label].append((time.perf_counter() - t0) * 1e3)
-            if hasattr(out, "iterations"):  # ICP: iterations per cluster lane
-                icp_iters[:] = out.iterations.tolist()
+            if hasattr(out, "iterations"):  # ICP: iterations per lane
+                icp_iters.append(out.iterations.tolist())
             return out
 
         setattr(mod, name, wrapper)
@@ -89,20 +110,31 @@ def main() -> int:
         (TP, "statistical_outlier_removal", "pose: SOR"),
         (TP, "voxel_grid_filter", "pose: voxel filters"),
         (CC, "icp_two_stage", "pose: two-stage ICP"),
+        (CC, "icp_two_stage_plane", "pose: point-to-plane ICP"),
+        (CC, "icp_nonlinear_schedule", "pose: LM ICP"),
+        (CC, "inplane_sweep_fix", "pose: in-plane sweep"),
+        (TL, "get_pose_by_local_descriptor", "pose: local-descriptor pose"),
+        (TV, "depth_normals", "scene normals"),
+        (CC, "select_hypothesis", "pose: hypothesis selection"),
+        (CC, "nms_rects", "NMS after the pose"),
         (TP, "voxel_occupancy_rate", "pose: HV"),
     ]
     saved = [(mod, name, timed(mod, name, label)) for mod, name, label in stages]
     total = []
     for _ in range(args.iters):
         times.clear()
+        icp_iters.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, st = pipe.detect(rgb, cloud, threshold=thr, depth_mm=dep_t, return_stages=True)
         torch.cuda.synchronize()
         total.append((time.perf_counter() - t0) * 1e3)
         print(json.dumps({"stages_ms": {k: sum(v) for k, v in times.items()},
+                          "stage_calls": {k: len(v) for k, v in times.items() if len(v) > 1},
                           "detect_ms_with_stage_syncs": total[-1],
-                          "icp_iterations_per_lane": icp_iters}), flush=True)
+                          "lanes": int(st.poses.valid.numel())
+                          * pipe.params.orientation_hypotheses,
+                          "icp_iterations_per_call_and_lane": icp_iters}), flush=True)
     for mod, name, fn in saved:
         setattr(mod, name, fn)
 
