@@ -117,6 +117,31 @@ from csrc/.  Phases, one JSON line each:
       3.02 and 1.35; and the TF32 control: the accuracy frames and the LM
       frame with TF32 matmuls on must fall outside their tolerances.
 
+  11. serving (the surface between a camera and the robot's base frame):
+      on the four cascade frames as replay frames (rgb + cloud, no depth
+      image, so the match scores colour only: the RGB-only bank
+      data/boxNew_full_*, the cuboid, default CascadeParams, threshold
+      91), PoseService.linemod_object_pose against
+      tests/data/torch_serving_golden.npz (the JAX reference's): the
+      base-frame transforms within POSE_TOL, the identity on the
+      background frame and on an unknown object id; the detections
+      (rects equal, poses within POSE_TOL), StreamingDetector and
+      PollingMultiObjectDetector on the same frames; look_at_point equal
+      to the golden's; template_refinement from the golden's poses within
+      POSE_TOL, and K4 on its operands (one pose in the 256 x 256
+      viewport) bitwise against plain and timed with its bound; the CLI
+      (`python -m linemod_pose_estimation_tpu_torch detect` and `serve`,
+      subprocesses on the card) against the golden; launch counts of
+      K1-K4 over the four requests and per request, request ms.  Then the
+      streaming step of tools/bench_streaming_torch.py (B=32 pooled
+      matcher over the RGB-D bank tiled to 10,624, the pose stage on the
+      batch's best frame): its Matches against the plain matcher's, every
+      field; PipelinedRunner(depth=2) against blocking calls over 8
+      batches, in submission order; launch counts per step, blocking p50,
+      pipelined p50 per submit, device ms per step, busy share.  Last the
+      tool itself as subprocesses: a paced and a saturated run of 10 s and
+      its --e2e probe, each record on its own line (reported, not gated).
+
 Then a kernels summary line (per kernel: launches on its path, the
 summed time, plain time and bound of those launches at their shapes,
 what bounds it, the share of the bound, and library_ms null: no single
@@ -127,9 +152,10 @@ exits non-zero without printing the last line.  It needs CUDA: without a
 card it exits 2 before doing anything.
 
     python3 chip_smoke.py --only options
+    python3 chip_smoke.py --only serving
 
-builds the kernels and runs phase 10 alone (a quick check of the cascade's
-options on a card); it prints no summary and no last line.
+build the kernels and run phase 10 or phase 11 alone (a quick check on a
+card); they print no summary and no last line.
 """
 
 from __future__ import annotations
@@ -156,6 +182,9 @@ PRUNE_GOLDEN = os.path.join(REPO, "tests", "data", "torch_prune_golden.npz")
 OPTIONS_GOLDEN = os.path.join(REPO, "tests", "data", "torch_cascade_options_golden.npz")
 SWEEP_CLOUDS = {"sweep_view45_clouds": 3.02, "sweep_view00_clouds": 1.35}  # degrees
 RGB_BANK = os.path.join(REPO, "data", "boxNew_full_templates.yml.gz")
+RGB_PARAMS = os.path.join(REPO, "data", "boxNew_full_params.yml.gz")
+SERVING_GOLDEN = os.path.join(REPO, "tests", "data", "torch_serving_golden.npz")
+STREAM_TOOL = os.path.join(REPO, "tools", "bench_streaming_torch.py")
 # Degrees, mm between the card's poses and the reference's.  The card in
 # full f32 lands within 4e-5 deg / 1e-4 mm ("NVIDIA H100 80GB HBM3,
 # 700.00 W"); the TF32 control below must land outside.  The CPU tests'
@@ -1224,6 +1253,299 @@ def prune_phase(dev, det, bank, two: dict) -> dict:
     return launches_pos
 
 
+def transform_err(translation, rotation_xyzw, T) -> tuple[float, float]:
+    """(degrees, mm) between a wire Transform and a (4, 4) pose."""
+    from linemod_pose_estimation_tpu_torch.api import transforms as TR
+
+    x, y, z, w = rotation_xyzw
+    return pose_err(TR.make_affine(*translation, w, x, y, z), T)
+
+
+def run_cli(args, stdin=None, timeout=300) -> list:
+    """`python -m linemod_pose_estimation_tpu_torch ...` on the card; its
+    JSON lines."""
+    proc = subprocess.run([sys.executable, "-m", "linemod_pose_estimation_tpu_torch", *args],
+                          input=stdin, capture_output=True, text=True, timeout=timeout,
+                          cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+    require(proc.returncode == 0, f"CLI {args[0]} exited {proc.returncode}:\n"
+            f"{proc.stderr[-3000:]}")
+    return [json.loads(line) for line in proc.stdout.strip().splitlines()]
+
+
+def load_stream_tool():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("bench_streaming_torch", STREAM_TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def serving_phase(dev: torch.device, perf: dict) -> tuple[dict, dict]:
+    """Phase 11 (the serving surface, the streaming step, the streaming
+    tool); adds K4's row at template_refinement's launch to `perf` and
+    returns the launch counts of one service request and of one
+    streaming step."""
+    import shutil
+
+    from linemod_pose_estimation_tpu_torch.api import transforms as TR
+    from linemod_pose_estimation_tpu_torch.api.nodes import (PollingMultiObjectDetector,
+                                                             StreamingDetector,
+                                                             save_replay_frame)
+    from linemod_pose_estimation_tpu_torch.api.service import Frame, ObjectConfig, PoseService
+    from linemod_pose_estimation_tpu_torch.models.pipeline import DetectionPipeline
+    from linemod_pose_estimation_tpu_torch.models.serving import (
+        BatchedMatcher, PipelinedRunner, look_at_point, slice_settings, template_refinement)
+    from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
+    from linemod_pose_estimation_tpu_torch.ops import _build
+    from linemod_pose_estimation_tpu_torch.ops import raster as RA
+    from linemod_pose_estimation_tpu_torch.utils import scenes as S
+    from linemod_pose_estimation_tpu_torch.utils.stl import save_binary_stl
+
+    with np.load(SERVING_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    with np.load(CASCADE_GOLDEN) as z:
+        rgbs = z["rgb"]
+        depths = z["depth_mm"]
+    meta, glob = TemplateBank.read_params_yaml(RGB_PARAMS)
+    clouds = S.replay_clouds(depths, glob.focal_length_x, glob.focal_length_y)
+    frames = [Frame(rgb=r, cloud=c) for r, c in zip(rgbs, clouds)]
+    thr, nf = float(g["threshold"]), len(frames)
+    pipe = DetectionPipeline.from_files(RGB_BANK, RGB_PARAMS, S.cuboid_mesh(), device=dev)
+    identity = (TR.Transform.identity().translation, TR.Transform.identity().rotation)
+
+    def within(e, what):
+        require(e[0] <= POSE_TOL[0] and e[1] <= POSE_TOL[1], f"{what}: off the reference by {e}")
+        return dict(deg=e[0], mm=e[1])
+
+    def check_dets(dets, f, what):
+        n = int(g["det_n"][f])
+        require([d.rect for d in dets] == [tuple(int(v) for v in r) for r in g["det_rect"][f][:n]],
+                f"{what} frame {f}: rects {[d.rect for d in dets]} differ from the reference")
+        return [within(pose_err(d.pose, g["det_pose"][f][i]), f"{what} frame {f} det {i}")
+                for i, d in enumerate(dets)]
+
+    # -- the service: four requests, one a frame ------------------------------
+    cur = {"f": 0}
+    svc = PoseService(lambda: frames[cur["f"]], base_tool0_source=lambda: g["base_tool0"])
+    svc.register_object(0, ObjectConfig(pipeline=pipe, threshold=thr))
+    svc.linemod_object_pose(0)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    answers = []
+    for f in range(nf):
+        cur["f"] = f
+        answers.append(svc.linemod_object_pose(0))
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
+        require(launches[k] > 0, f"kernel {k} was not launched by the service")
+    errs = []
+    for f, t in enumerate(answers):
+        if g["det_n"][f] == 0:
+            require((t.translation, t.rotation) == identity,
+                    f"service frame {f}: a miss must give the identity, got {t}")
+            errs.append("identity")
+            continue
+        T = TR.make_affine(*g["svc_translation"][f], g["svc_rotation"][f][3],
+                           *g["svc_rotation"][f][:3])
+        errs.append(within(transform_err(t.translation, t.rotation, T), f"service frame {f}"))
+    unknown = svc.linemod_object_pose(int(g["unknown_id"]))
+    require((unknown.translation, unknown.rotation) == identity,
+            f"service: an unknown object id must give the identity, got {unknown}")
+    cur["f"] = 0
+    _build.reset_launch_counts()
+    svc.linemod_object_pose(0)
+    torch.cuda.synchronize()
+    per_request = dict(_build.launch_counts)
+    request_ms = timed(lambda: svc.linemod_object_pose(0), 5)
+
+    # -- the detections, the nodes, look_at_point, template_refinement -------
+    det_errs, look, refined = [], [], []
+    stream = StreamingDetector(pipe, threshold=thr)
+    ticks = iter(frames)
+    poll = PollingMultiObjectDetector(lambda: next(ticks))
+    poll.register_object(0, ObjectConfig(pipeline=pipe, threshold=thr))
+    renders, first_refinement = [], None
+    for f, fr in enumerate(frames):
+        dets = pipe.detect(fr.rgb, fr.cloud, thr)
+        det_errs.append(check_dets(dets, f, "detect"))
+        best = stream.feed(fr)  # the node publishes the best detection only
+        require((best is None) == (g["det_n"][f] == 0), f"StreamingDetector frame {f}: {best}")
+        if best is not None:
+            require(best.rect == tuple(int(v) for v in g["det_rect"][f][0]),
+                    f"StreamingDetector frame {f}: rect {best.rect}")
+            within(pose_err(best.pose, g["det_pose"][f][0]), f"StreamingDetector frame {f}")
+        oid, pdets = poll.run_once()
+        require(oid == 0, f"PollingMultiObjectDetector ticked object {oid}")
+        check_dets(pdets, f, "PollingMultiObjectDetector")
+        cloud = torch.from_numpy(fr.cloud).to(dev)
+        for i in range(int(g["det_n"][f])):
+            rect = tuple(int(v) for v in g["det_rect"][f][i])
+            p = look_at_point(cloud, rect).cpu().numpy()
+            require(np.array_equal(p, g["look_at"][f][i]),
+                    f"look_at_point frame {f}: {p.tolist()} != {g['look_at'][f][i].tolist()}")
+            look.append(p.tolist())
+            args = (torch.from_numpy(g["det_pose"][f][i]).to(dev), cloud, rect,
+                    pipe.triangles, pipe.K_render, pipe.render_wh)
+            got = calls_of([(RA, "raster_zbuffer")],
+                           lambda: refined.append(template_refinement(*args)))
+            first_refinement = first_refinement or args
+            renders += got["raster_zbuffer"]
+            T, fit = refined[-1]
+            e = within(pose_err(T.cpu().numpy(), g["refined_pose"][f][i]),
+                       f"template_refinement frame {f}")
+            e["fitness_diff"] = abs(float(fit) - float(g["refined_fitness"][f][i]))
+            refined[-1] = e
+    require(len(renders) == int(g["det_n"].sum()), f"template_refinement: {len(renders)} "
+            f"K4 calls for {int(g['det_n'].sum())} refinements")
+    coefs, w, h = renders[0]
+    require(coefs.shape[0] == 1 and (w, h) == (256, 256),
+            f"template_refinement's K4: {coefs.shape[0]} poses at {w}x{h}")
+    perf["raster_zbuffer"]["template_refinement_captured"] = dict(
+        **raster_vs_plain(coefs, w, h, "template_refinement_captured"),
+        **raster_times(coefs, w, h))
+    _build.reset_launch_counts()
+    template_refinement(*first_refinement)
+    torch.cuda.synchronize()
+    refine_launches = dict(_build.launch_counts)
+    emit("serving_golden", frames=nf, threshold=thr, bank="boxNew_full (RGB-only)",
+         launches=launches, launches_per_request=per_request,
+         request_ms_median_of_5=float(np.median(request_ms)), request_ms=request_ms,
+         service_vs_reference=errs, unknown_id_identity=True,
+         detect_vs_reference=det_errs, nodes_equal=True, look_at=look,
+         template_refinement_vs_reference=refined, template_refinement_launches=refine_launches,
+         K4_template_refinement=perf["raster_zbuffer"]["template_refinement_captured"],
+         pose_tolerance_deg_mm=POSE_TOL)
+
+    # -- the CLI, as subprocesses on the card ----------------------------------
+    work = os.path.join(REPO, "build", "serving_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "frames"))
+    stl = os.path.join(work, "cuboid.stl")
+    save_binary_stl(stl, S.cuboid_mesh().triangles)
+    for f, fr in enumerate(frames):
+        save_replay_frame(os.path.join(work, "frames", f"f{f}.npz"), fr.rgb, fr.cloud)
+    t0 = time.perf_counter()
+    recs = run_cli(["detect", RGB_BANK, RGB_PARAMS, stl, os.path.join(work, "frames"),
+                    "--threshold", str(thr), "--device", "cuda"])
+    detect_s = time.perf_counter() - t0
+    require([r["frame"] for r in recs] == list(range(nf)), "CLI detect: frames")
+    cli_errs = []
+    for f, r in enumerate(recs):
+        n = int(g["det_n"][f])
+        require([tuple(d["rect"]) for d in r["detections"]]
+                 == [tuple(int(v) for v in x) for x in g["det_rect"][f][:n]],
+                 f"CLI detect frame {f}: rects differ from the reference")
+        cli_errs += [within(pose_err(np.array(d["pose"]), g["det_pose"][f][i]),
+                            f"CLI detect frame {f}") for i, d in enumerate(r["detections"])]
+    t0 = time.perf_counter()
+    lines = run_cli(["serve", os.path.join(work, "frames"), "--object",
+                     f"0:{RGB_BANK}:{RGB_PARAMS}:{stl}:{thr}", "--device", "cuda"],
+                    stdin="0\n" * nf + f"{int(g['unknown_id'])}\nquit\n")
+    serve_s = time.perf_counter() - t0
+    require(lines[0] == {"serving": [0]} and len(lines) == nf + 2, f"CLI serve: {lines[:1]}")
+    ident = dict(translation=[0.0, 0.0, 0.0], rotation_xyzw=[0.0, 0.0, 0.0, 1.0])
+    for f, line in enumerate(lines[1:nf + 1]):
+        if g["det_n"][f] == 0:
+            require(line == {"object_id": 0, **ident}, f"CLI serve frame {f}: not the identity")
+            continue
+        # the CLI's service has no robot: base <- tool0 is the identity
+        T = TR.base_to_object(np.eye(4), g["det_pose"][f][0].astype(np.float64))
+        cli_errs.append(within(transform_err(line["translation"], line["rotation_xyzw"], T),
+                               f"CLI serve frame {f}"))
+    require(lines[-1] == {"object_id": int(g["unknown_id"]), **ident},
+            "CLI serve: an unknown object id must give the identity")
+    shutil.rmtree(work, ignore_errors=True)
+    emit("serving_cli", detect_frames=nf, serve_requests=nf + 1, vs_reference=cli_errs,
+         detect_process_s=detect_s, serve_process_s=serve_s)
+
+    # -- the streaming step at B=32 --------------------------------------------
+    tool = load_stream_tool()
+    t0 = time.perf_counter()
+    st = tool.Streaming(dev)
+    sframes, sdepths = tool.scenes()
+    setup_s = time.perf_counter() - t0
+    rd = torch.from_numpy(sframes).to(dev)
+    dd = torch.from_numpy(sdepths).to(dev)
+    m_kern = st.matcher.match_batch(rd, dd)
+    plain = BatchedMatcher(st.det, st.cid, tool.THRESHOLD, st.batch, device=dev, plain=True,
+                           **slice_settings(st.batch))
+    require(matches_equal(m_kern, plain.match_batch(rd, dd)),
+            "streaming step: kernel path != plain path")
+    require(matches_equal(st.matcher.last_pool, plain.last_pool),
+            "streaming step: PooledStats kernel != plain")
+    del plain
+    batches = [(np.roll(sframes, 4 * k, axis=0), np.roll(sdepths, 4 * k, axis=0))
+               for k in range(8)]
+    st.step(*batches[0])  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    st.step(*batches[0])
+    torch.cuda.synchronize()
+    per_step = dict(_build.launch_counts)
+    for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
+        require(per_step[k] > 0, f"kernel {k} was not launched by the streaming step")
+    blocking, block_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        blocking.append(st.step(*b))
+        torch.cuda.synchronize()
+        block_ms.append((time.perf_counter() - t0) * 1e3)
+    run = PipelinedRunner(st.step, depth=2, device=dev)
+    piped, submit_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        out = run.submit(*b)
+        submit_ms.append((time.perf_counter() - t0) * 1e3)
+        if out is not None:
+            piped.append(out)
+    piped += run.drain()
+    require(len(piped) == len(blocking), "PipelinedRunner lost a result")
+    pose_diff = 0.0
+    for i, (a, b) in enumerate(zip(piped, blocking)):
+        for name in ("valid", "pose_valid", "fallback", "best_frame"):
+            require(torch.equal(getattr(a, name), getattr(b, name)),
+                    f"PipelinedRunner batch {i}: {name} differs from the blocking call's")
+        pose_diff = max(pose_diff, float((a.pose - b.pose).abs().max()))
+    require(pose_diff <= 1e-5, f"PipelinedRunner: poses {pose_diff} off the blocking calls'")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches[:3]:
+            st.step(*b)
+        torch.cuda.synchronize()
+    dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3 / 3
+    p50_block = float(np.median(block_ms))
+    # what the step's pageable host-to-device copy of one batch costs
+    h2d_ms = timed(lambda: (torch.as_tensor(sframes).to(dev), torch.as_tensor(sdepths).to(dev)), 5)
+    emit("streaming_step", batch=st.batch, templates=st.det.bank(st.cid).num_templates,
+         equal_kernel_vs_plain=True, pipelined_equals_blocking=True,
+         pipelined_pose_max_abs_diff=pose_diff,
+         best_frames=[int(b.best_frame) for b in blocking],
+         verified_poses=[int(b.pose_valid.sum()) for b in blocking],
+         launches_per_step=per_step, blocking_ms=block_ms, blocking_p50_ms=p50_block,
+         submit_ms=submit_ms, pipelined_p50_per_submit_ms=float(np.median(submit_ms[2:])),
+         device_ms_per_step=dev_ms, busy_share=dev_ms / p50_block,
+         h2d_pageable_ms_median_of_5=float(np.median(h2d_ms)),
+         h2d_bytes=int(sframes.nbytes + sdepths.nbytes), setup_s=setup_s,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del st, run, piped, blocking, rd, dd
+
+    # -- the streaming tool: paced + saturated, then --e2e (reported) ---------
+    for args in (["--secs", "10"], ["--e2e"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, STREAM_TOOL, *args], capture_output=True,
+                              text=True, timeout=400, cwd=REPO)
+        require(proc.returncode == 0, f"bench_streaming_torch {args}: exit "
+                f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        emit("streaming_tool", args=args, process_s=time.perf_counter() - t0,
+             record=json.loads(proc.stdout.strip().splitlines()[-1]))
+    return per_request, per_step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1253,6 +1575,10 @@ def main() -> int:
     perf = {k: {} for k in KERNELS}
     if sys.argv[1:] == ["--only", "options"]:
         options_phase(dev, perf)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--only", "serving"]:
+        serving_phase(dev, perf)
         print(card, flush=True)
         return 0
     if sys.argv[1:]:
@@ -1422,6 +1748,7 @@ def main() -> int:
     launches9 = prune_phase(dev, det, bank, two_object_phase(dev, bank, rgbs, deps))
     del det
     launches10 = options_phase(dev, perf)
+    launches11, launches_step = serving_phase(dev, perf)
 
     # -- summary -------------------------------------------------------------
     # launches: of one B=32 pooled batch (phase 2b) for K1-K3, of one detect
@@ -1431,7 +1758,8 @@ def main() -> int:
     # 640x480 frame, on detect's own operands and on the accuracy detect's 16
     # lanes) are rows of `shapes`.
     off_path = ("all_slots", "detect_B1", "cascade_8x256x256", "frame_640x480",
-                "detect_captured", "accuracy_captured", "refine_round_captured")
+                "detect_captured", "accuracy_captured", "refine_round_captured",
+                "template_refinement_captured")
     launches_of = {"spread_response_b1": (per_detect["spread_response"], "one detect"),
                    "raster_zbuffer": (per_detect["raster_zbuffer"], "one detect"),
                    "refine_scores": (launches7["refine_scores"], "one K5 chain")}
@@ -1455,6 +1783,8 @@ def main() -> int:
             launches_per_detect=per_detect.get(key.removesuffix("_b1")),
             launches_per_positions_batch=launches9.get(key),
             launches_per_accuracy_detect=launches10.get(key.removesuffix("_b1")),
+            launches_per_serving_request=launches11.get(key.removesuffix("_b1")),
+            launches_per_streaming_step=launches_step.get(key.removesuffix("_b1")),
             shapes=shapes))
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

@@ -9,8 +9,14 @@ package is held against; the layout mirrors it module for module:
                template-scoring engines, the rasterizer, ICP, and the
                hand-written CUDA kernels (``csrc/``) with their plain
                PyTorch versions.
-- ``models`` — template banks, the Detector, the batched serving matcher,
-               the renderer, the detection cascade and DetectionPipeline.
+- ``models`` — template banks, the Detector, the batched serving matcher
+               and PipelinedRunner, the renderer, the detection cascade and
+               DetectionPipeline.
+- ``parallel`` — host-side multi-camera ingest (FrameBatcher, PacedSource).
+- ``api``    — the pose service, the application nodes and replay
+               sources, the robot-frame transform chain.
+- ``__main__`` — the CLI: ``python -m linemod_pose_estimation_tpu_torch
+               detect|serve ... [--device cpu]``.
 
 Nothing here imports ``jax``: the reference package imports it at package
 import time, so even its numpy-only helpers are copied, not imported.

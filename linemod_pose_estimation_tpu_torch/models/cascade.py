@@ -333,6 +333,19 @@ def _transplanted_scene_mask_window(mask, rect, X, Y, oy0, ox0, WH: int, WW: int
     return (m > 0) & ok
 
 
+def _transplanted_scene_mask(mask: torch.Tensor, rect, X, Y, H: int, W: int) -> torch.Tensor:
+    """One rendered mask (mh, mw), cropped at its bbox `rect` (4,) and
+    placed at (X, Y) in an (H, W) scene: the window variant above with
+    the whole frame as its window, which clamps the start of the
+    reference's canvas slice the same way."""
+    dev = mask.device
+    lane = lambda v: torch.as_tensor(v, dtype=torch.int64, device=dev).reshape(1)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    rect = torch.as_tensor(rect, device=dev).to(torch.int64).reshape(1, 4)
+    return _transplanted_scene_mask_window(mask[None], rect, lane(X), lane(Y), zero, zero,
+                                           H, W)[0]
+
+
 def _compact_points(pts_flat: torch.Tensor, sel_flat: torch.Tensor, cap: int,
                     aux_flat: torch.Tensor | None = None):
     """Compact up to `cap` selected points per lane ((C, N, 3), (C, N)) in

@@ -1,7 +1,6 @@
 """DetectionPipeline: the full per-frame flow of the reference's
 detect_cb behind one object — the port of
-``linemod_pose_estimation_tpu/models/pipeline.py`` (``draw_response`` is
-not ported yet).
+``linemod_pose_estimation_tpu/models/pipeline.py``.
 
     pipeline = DetectionPipeline(detector, metadata, globals_, mesh, params)
     detections = pipeline.detect(rgb, cloud, depth_mm=depth)
@@ -166,6 +165,24 @@ class DetectionPipeline:
                                      nms_keep=keep.cpu().numpy(),
                                      cluster_order=order.cpu().numpy(), poses=poses)
         return out
+
+    def draw_response(self, rgb, matches: M.Matches, max_draw: int = 8) -> np.ndarray:
+        """Feature-dot overlay of the first `max_draw` valid matches
+        (drawResponse): each match's level-0 features painted at (match.x +
+        fx, match.y + fy), coloured by its slot.  The bank's features and
+        the matches come to the host once."""
+        from ..utils.visualization import draw_features
+
+        palette = [(0, 255, 0), (255, 0, 0), (0, 0, 255), (255, 255, 0),
+                   (255, 0, 255), (0, 255, 255), (255, 128, 0), (128, 0, 255)]
+        img = np.array(rgb, copy=True)
+        feats0 = self.detector.bank(self.class_id).merged_features(0)
+        offsets, live = feats0.offsets.cpu().numpy(), feats0.live.cpu().numpy()
+        tid, xs, ys = (a.cpu().numpy() for a in (matches.template_id, matches.x, matches.y))
+        for slot, i in enumerate(np.nonzero(matches.valid.cpu().numpy())[0][:max_draw]):
+            img = draw_features(img, offsets[tid[i]][live[tid[i]]], (int(xs[i]), int(ys[i])),
+                                palette[slot % len(palette)])
+        return img
 
     @classmethod
     def from_files(cls, templates_yml: str, params_yml: str, stl_path,

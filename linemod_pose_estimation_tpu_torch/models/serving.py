@@ -20,14 +20,22 @@ MultiClassBatchedMatcher serves several classes from one preprocess, one
 pruned pass over the merged bank (per-frame caps by default, or the pool)
 and one walk.
 
-Not ported yet: PipelinedRunner, look_at_point and template_refinement.
+PipelinedRunner keeps up to `depth` steps in flight, each closed by a CUDA
+event.  The carmine node's extras: look_at_point (the cloud point at a
+detection's bbox centre, with a nearest-valid fallback) and
+template_refinement (a re-render at the estimated pose, K4, and one more
+two-stage ICP).
 """
 
 from __future__ import annotations
 
+from collections import deque
+
 import torch
 
 from ..ops import match as M
+from ..ops.icp import icp_two_stage
+from ..utils import pointcloud as pcu
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -357,3 +365,111 @@ class MultiClassBatchedMatcher:
         """(B, H, W, 3) uint8 [+ (B, H, W) mm] -> {class_id: Matches} with
         (B, top_k) tensors, template ids re-based per class."""
         return self.refine(*self.candidates(rgbs, depths_mm))
+
+
+class PipelinedRunner:
+    """Keep up to `depth` submitted steps in flight on `device`.
+
+    submit() runs fn and records a CUDA event after it on the current
+    stream, then returns without waiting for the device; collect() waits
+    on the OLDEST step's event only.  Results come out in submission
+    order, and submitting past `depth` waits on (and returns) the oldest
+    result, which bounds the device memory in flight.  A step that reads
+    a flag on the host (the pooled matcher's `.item()`s, ICP's per-
+    iteration check, detect's copies to the host) has run most of its
+    device work by the time fn returns, so what is left to overlap is the
+    tail after its last host read.  On `device="cpu"` fn's results are
+    ready when it returns."""
+
+    def __init__(self, fn, depth: int = 2, device=DEFAULT_DEVICE):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1 (got {depth})")
+        self.fn = fn
+        self.depth = depth
+        self.device = resolve_device(device)
+        self._q: deque = deque()
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def submit(self, *args, **kwargs):
+        """Dispatch one step; returns the oldest completed result when the
+        pipeline was full, else None.  Dispatch comes before the wait: if
+        fn raises, nothing already in flight is lost and the queue is
+        unchanged (one caller-side stamp per submitted step stays paired)."""
+        out = self.fn(*args, **kwargs)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self._q.append((out, event))
+        if len(self._q) > self.depth:
+            return self.collect()
+        return None
+
+    def collect(self):
+        """Wait for and return the oldest in-flight result."""
+        if not self._q:
+            raise RuntimeError("collect() with nothing in flight")
+        out, event = self._q.popleft()
+        if event is not None:
+            event.synchronize()
+        return out
+
+    def drain(self) -> list:
+        """Collect every remaining in-flight result, oldest first."""
+        out = []
+        while self._q:
+            out.append(self.collect())
+        return out
+
+
+def look_at_point(cloud: torch.Tensor, rect_xywh, cap: int = 256) -> torch.Tensor:
+    """The 3-D gaze target at a detection's bbox centre (the carmine
+    node's get_look_at_point): the cloud point there, or where that is not
+    finite, the finite point of the bbox nearest the centroid of its
+    first `cap` finite points."""
+    H, W = cloud.shape[:2]
+    x, y, w, h = (int(v) for v in rect_xywh)
+    center = cloud[min(max(y + h // 2, 0), H - 1), min(max(x + w // 2, 0), W - 1)]
+    pts, valid = pcu.extract_rect_points(cloud, (x, y, w, h), cap)
+    fallback = pcu.nearest_point(pts, valid, pcu.masked_centroid(pts, valid))
+    return torch.where(torch.isfinite(center).all(), center, fallback)
+
+
+def template_refinement(pose: torch.Tensor, cloud: torch.Tensor, rect_xywh,
+                        triangles: torch.Tensor, K_render: torch.Tensor,
+                        render_wh: tuple[int, int], model_cap: int = 1024,
+                        scene_cap: int = 1024, bias_x: int = 0,
+                        viewport: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """One re-render + re-ICP round at an estimated pose (4, 4) (the
+    carmine node's templateRefinement): returns (refined pose, ICP
+    fitness).  The render (K4 on the card) puts the object on the optical
+    axis at |t|; `viewport` is its centred window (0 = the full render
+    size).  The scene set is the render's mask placed at the detection's
+    rect, dilated by 2 px, over the organized cloud (H, W, 3)."""
+    from .cascade import _compact_points, _transplanted_scene_mask, dilate_mask
+    from .renderer import render as render_fn
+
+    rw, rh = render_wh
+    if viewport and viewport < min(rw, rh):
+        K_render = K_render.clone()
+        K_render[0, 2] = K_render[1, 2] = viewport / 2.0
+        rw = rh = viewport
+    R, t = pose[:3, :3], pose[:3, 3]
+    T_bank = R.transpose(0, 1) @ t  # render's X_cam = R (X + T)
+    out = render_fn(triangles, R.to(torch.float32), T_bank.to(torch.float32), K_render, rw, rh)
+    mcloud = pcu.depth_to_cloud(pcu.true_div(out.depth_mm, 1000.0), K_render)
+    msel = (out.mask > 0) & torch.isfinite(mcloud).all(dim=-1)
+    model_pts, model_valid = _compact_points(mcloud.reshape(1, -1, 3), msel.reshape(1, -1),
+                                             model_cap)
+    # Recentre the rendered model at the pose translation.
+    model_pts = model_pts - pcu.masked_centroid(model_pts, model_valid)[:, None, :] + t
+    H, W = cloud.shape[:2]
+    x, y = int(rect_xywh[0]), int(rect_xywh[1])
+    smask = dilate_mask(_transplanted_scene_mask(out.mask, out.rect, x + bias_x, y, H, W), 2)
+    ssel = smask & torch.isfinite(cloud).all(dim=-1)
+    scene_pts, scene_valid = _compact_points(cloud.reshape(1, -1, 3), ssel.reshape(1, -1),
+                                             scene_cap)
+    res = icp_two_stage(model_pts, model_valid, scene_pts, scene_valid)
+    return res.transform[0] @ pose, res.fitness[0]

@@ -44,6 +44,41 @@ def depth_to_cloud(depth_m: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     return torch.where(depth_m[..., None] > 0, cloud, torch.nan)
 
 
+def cloud_to_depth_mm(cloud: torch.Tensor) -> torch.Tensor:
+    """Organized cloud (..., H, W, 3) in metres -> uint16 depth in
+    millimetres: z * 1000 clipped to [0, 65535] and truncated, NaN -> 0
+    (the nodes' pc2depth)."""
+    z = cloud[..., 2]
+    z = torch.where(torch.isnan(z), 0.0, z)
+    return (z * 1000.0).clamp(0, 65535).to(torch.int32).to(torch.uint16)
+
+
+def extract_rect_points(cloud: torch.Tensor, rect_xywh, cap: int,
+                        mask: torch.Tensor | None = None, bias_x: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The finite points of an organized cloud (H, W, 3) inside a ROI
+    (x, y, w, h) whose columns are shifted by `bias_x` (a 752-wide cloud
+    under a 640-wide cropped image); with `mask` (H, W, image coordinates,
+    rolled by `bias_x` with wraparound) only its pixels > 0.  Returns
+    (points (min(cap, H W), 3) f32, valid): the selected pixels in raster
+    order first, then the others with the sentinel, as the reference's
+    stable argsort orders them."""
+    H, W = cloud.shape[:2]
+    dev = cloud.device
+    x0, y0, w, h = (int(v) for v in rect_xywh)
+    vv = torch.arange(H, device=dev)[:, None]
+    uu = torch.arange(W, device=dev)[None, :]
+    inside = (uu >= x0 + bias_x) & (uu < x0 + w + bias_x) & (vv >= y0) & (vv < y0 + h)
+    if mask is not None:
+        shifted = torch.roll(mask > 0, bias_x, dims=1) if bias_x else mask > 0
+        inside = inside & shifted
+    sel = (inside & torch.isfinite(cloud).all(dim=-1)).reshape(-1)
+    order = torch.sort((~sel).to(torch.uint8), stable=True).indices[:cap]
+    valid = sel[order]
+    pts = torch.where(valid[:, None], cloud.reshape(-1, 3)[order], SENTINEL)
+    return pts.to(torch.float32), valid
+
+
 def masked_centroid(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     n = valid.sum(dim=-1, keepdim=True).clamp(min=1)
     return torch.where(valid[..., None], points, 0.0).sum(dim=-2) / n

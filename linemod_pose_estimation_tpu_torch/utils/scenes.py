@@ -158,6 +158,24 @@ def cuboid_mesh(dims=(0.088, 0.144, 0.076), subdiv: int = 18):
     return Mesh(triangles=tris, normals=_recompute_normals(tris))
 
 
+def replay_clouds(depths_mm, fx: float, fy: float) -> list[np.ndarray]:
+    """The organized clouds (H, W, 3) float32 metres of depth frames (mm)
+    at a pinhole camera with focal lengths fx, fy and the principal point
+    at the frame's centre, as replay frames carry them: computed on the
+    host by ``pointcloud.depth_to_cloud`` (0 depth -> NaN)."""
+    import torch
+
+    from .pointcloud import depth_to_cloud, true_div
+
+    out = []
+    for d in depths_mm:
+        H, W = np.shape(d)
+        K = torch.tensor([[fx, 0, W / 2.0], [0, fy, H / 2.0], [0, 0, 1.0]], dtype=torch.float32)
+        d = torch.from_numpy(np.asarray(d, np.float32))
+        out.append(depth_to_cloud(true_div(d, 1000.0), K).numpy())
+    return out
+
+
 def found_rate(valid, xs, ys, truths, tol: int = 8) -> tuple[int, int]:
     """(found, total): a planted object counts as found when some valid
     match lies within `tol` px of its origin in x and y."""

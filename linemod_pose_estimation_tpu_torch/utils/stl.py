@@ -78,3 +78,14 @@ def load_stl(path: str) -> Mesh:
     else:
         tris = _load_binary(data)
     return Mesh(triangles=tris, normals=_recompute_normals(tris))
+
+
+def save_binary_stl(path: str, triangles: np.ndarray) -> None:
+    """Write a triangle soup (T, 3, 3) as a binary STL (recomputed facet
+    normals, a zero header, no attributes): what load_stl reads back."""
+    tris = np.asarray(triangles, np.float32)
+    rec = np.zeros((tris.shape[0], 50), np.uint8)
+    floats = np.concatenate([_recompute_normals(tris)[:, None], tris], axis=1)
+    rec[:, :48] = floats.astype("<f4").reshape(-1, 12).view(np.uint8)
+    with open(path, "wb") as f:
+        f.write(bytes(80) + np.uint32(tris.shape[0]).astype("<u4").tobytes() + rec.tobytes())

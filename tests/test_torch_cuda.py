@@ -4,7 +4,10 @@ RGB-only bank), the K5 refiner, MultiClassBatchedMatcher (pooled and its
 default mode) and DetectionPipeline against their plain
 PyTorch versions, on a card; then the cascade's non-default options (the
 ICP variants, scene normals, the in-plane sweep, the local-descriptor pose,
-detect in six configurations) on the card against the CPU and the golden.  Every test here is
+detect in six configurations) on the card against the CPU and the golden;
+then the serving surface: K4 at template_refinement's launch against
+plain, PipelinedRunner against blocking calls, PoseService against the
+serving golden.  Every test here is
 marked requires_cuda and skips without a CUDA device; the file imports no
 JAX, so it runs on a machine with a card and no JAX:
 
@@ -37,6 +40,9 @@ from linemod_pose_estimation_tpu_torch.utils import scenes as S
 BANK = "data/boxNew_rgbd_templates.yml.gz"
 PARAMS = "data/boxNew_rgbd_params.yml.gz"
 CASCADE_GOLDEN = "tests/data/torch_cascade_golden.npz"
+SERVING_GOLDEN = "tests/data/torch_serving_golden.npz"
+RGB_BANK = "data/boxNew_full_templates.yml.gz"
+RGB_PARAMS = "data/boxNew_full_params.yml.gz"
 
 
 
@@ -586,3 +592,96 @@ def test_detect_options_on_the_card_equal_the_golden(cuda, config):
         tol = 0.05 if config == "nonlinear" else 0.01
         assert float(rotation_geodesic_deg(got[:3, :3], want[:3, :3])) <= tol
         assert 1000.0 * float((got[:3, 3] - want[:3, 3]).norm()) <= tol
+
+
+def _serving_fixture(cuda):
+    """The serving golden, the cascade frames' replay clouds and the
+    RGB-only pipeline on the card."""
+    with np.load(SERVING_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    with np.load(CASCADE_GOLDEN) as z:
+        rgbs, depths = z["rgb"], z["depth_mm"]
+    meta, glob = TemplateBank.read_params_yaml(RGB_PARAMS)
+    clouds = S.replay_clouds(depths, glob.focal_length_x, glob.focal_length_y)
+    pipe = DetectionPipeline(Detector.read(RGB_BANK, device=cuda), meta, glob, S.cuboid_mesh())
+    return g, rgbs, clouds, pipe
+
+
+@pytest.mark.requires_cuda
+def test_template_refinement_raster_on_the_card_equals_plain(cuda, monkeypatch):
+    """K4 on the operands template_refinement gives it (one pose in the
+    256 x 256 viewport), bitwise against plain; the refined pose within
+    chip_smoke's 0.01 degrees / 0.01 mm of the reference's."""
+    from linemod_pose_estimation_tpu_torch.models.serving import template_refinement
+
+    g, _, clouds, pipe = _serving_fixture(cuda)
+    seen, kernel = [], RA.raster_zbuffer
+    monkeypatch.setattr(RA, "raster_zbuffer", lambda *a: seen.append(a) or kernel(*a))
+    _build.reset_launch_counts()
+    T, _ = template_refinement(torch.from_numpy(g["det_pose"][0][0]).to(cuda),
+                               torch.from_numpy(clouds[0]).to(cuda),
+                               tuple(int(v) for v in g["det_rect"][0][0]), pipe.triangles,
+                               pipe.K_render, pipe.render_wh)
+    assert _build.launch_counts["raster_zbuffer"] == 1 and len(seen) == 1
+    coefs, w, h = seen[0]
+    assert coefs.shape[0] == 1 and (w, h) == (256, 256)
+    (zk, sk), (zp, sp) = kernel(coefs, w, h), RA.raster_zbuffer_plain(coefs, w, h)
+    assert torch.equal(zk, zp) and torch.equal(sk, sp)
+    want = g["refined_pose"][0][0].astype(np.float64)
+    got = T.cpu().numpy().astype(np.float64)
+    assert 1000 * np.linalg.norm(got[:3, 3] - want[:3, 3]) <= 0.01
+    cos = np.clip((np.trace(got[:3, :3].T @ want[:3, :3]) - 1) / 2, -1, 1)
+    assert np.degrees(np.arccos(cos)) <= 0.01
+
+
+@pytest.mark.requires_cuda
+def test_pipelined_runner_on_the_card_equals_blocking(cuda):
+    """The pooled matcher on the cascade frames through PipelinedRunner
+    (depth 2, CUDA events): the blocking calls' Matches, in order."""
+    from linemod_pose_estimation_tpu_torch.models.serving import PipelinedRunner, slice_settings
+
+    with np.load(CASCADE_GOLDEN) as z:
+        rgbs = torch.from_numpy(z["rgb"]).to(cuda)
+        deps = torch.from_numpy(z["depth_mm"]).to(cuda)
+    det = Detector.read(BANK, device=cuda)
+    m = BatchedMatcher(det, det.class_ids[0], 91.0, 4, device=cuda, **slice_settings(4))
+    batches = [(rgbs.roll(k, 0), deps.roll(k, 0)) for k in range(5)]
+    blocking = [m.match_batch(*b) for b in batches]
+    run = PipelinedRunner(m.match_batch, depth=2, device=cuda)
+    piped = [out for out in (run.submit(*b) for b in batches) if out is not None]
+    assert len(run) == 2
+    piped += run.drain()
+    assert len(piped) == len(blocking)
+    for a, b in zip(piped, blocking):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert int(blocking[0].valid.sum()) > 0
+
+
+@pytest.mark.requires_cuda
+def test_pose_service_on_the_card_against_the_golden(cuda):
+    """PoseService on the card over the cascade frames: the reference's
+    base-frame transforms within 0.01 degrees / 0.01 mm, the identity on
+    the background frame and on an unknown id."""
+    from linemod_pose_estimation_tpu_torch.api import transforms as TR
+    from linemod_pose_estimation_tpu_torch.api.service import Frame, ObjectConfig, PoseService
+
+    g, rgbs, clouds, pipe = _serving_fixture(cuda)
+    cur = {"f": 0}
+    svc = PoseService(lambda: Frame(rgbs[cur["f"]], clouds[cur["f"]]),
+                      base_tool0_source=lambda: g["base_tool0"])
+    svc.register_object(0, ObjectConfig(pipeline=pipe, threshold=float(g["threshold"])))
+    identity = TR.Transform.identity()
+    for f in range(len(rgbs)):
+        cur["f"] = f
+        t = svc.linemod_object_pose(0)
+        if g["det_n"][f] == 0:
+            assert t == identity
+            continue
+        x, y, z, w = g["svc_rotation"][f]
+        want = TR.make_affine(*g["svc_translation"][f], w, x, y, z)
+        x, y, z, w = t.rotation
+        got = TR.make_affine(*t.translation, w, x, y, z)
+        assert 1000 * np.linalg.norm(got[:3, 3] - want[:3, 3]) <= 0.01
+        cos = np.clip((np.trace(got[:3, :3].T @ want[:3, :3]) - 1) / 2, -1, 1)
+        assert np.degrees(np.arccos(cos)) <= 0.01
+    assert svc.linemod_object_pose(int(g["unknown_id"])) == identity
