@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives Detector.read -> BatchedMatcher(prune_mode="pooled") -> Matches
-(and every other ported path: phases 6-10) on the committed RGB-D bank at
+(and every other ported path: phases 6-12) on the committed RGB-D bank at
 full width (480x640 frames, 16 response
 channels, Fmax 128), after building the hand-written CUDA kernels K1
 (ColorGradient quantizer), K2 (spread + response) and K3 (local walk)
@@ -142,6 +142,25 @@ from csrc/.  Phases, one JSON line each:
       tool itself as subprocesses: a paced and a saturated run of 10 s and
       its --e2e probe, each record on its own line (reported, not gated).
 
+  12. the offline trainer (the cuboid written as a binary STL, the
+      reference's TrainerConfig(): 640x480, fx 535.566011, fy 537.168115,
+      the launch-scale view sphere, render_batch 16): K4 against plain,
+      bitwise, at one trainer chunk (the sphere's first 16 views), its
+      rects equal to the reference's renders, timed with its bound; K1's
+      magnitude variant against the plain quantizer, bitwise on both
+      outputs, at the chunk's two shapes (16 x 480x640 u8, its pyrDown 16 x
+      240x320 f32; timed with its bound) and on ODD_SHAPES; train_and_write
+      in both modes (RGB-only, ColorGradient + DepthNormal) over the
+      golden's 32 views against tests/data/torch_trainer_golden.npz (the
+      templates YAML byte-identical, the params equal with D within
+      D_TOL); trained view 0 re-rendered and matched: template 0 at >= 95;
+      train_from_stl in RGB-D over TRAIN_VIEWS views: views/s, wall, the
+      host's dispatch / wait / extract seconds, each chunk's device span,
+      busy share, peak memory, launch counts (K4 x1 and K1 x2 a chunk, and
+      no plain version called); then `python -m
+      linemod_pose_estimation_tpu_torch train` as a subprocess on the card
+      over the golden's views, its JSON line and files against the golden.
+
 Then a kernels summary line (per kernel: launches on its path, the
 summed time, plain time and bound of those launches at their shapes,
 what bounds it, the share of the bound, and library_ms null: no single
@@ -153,8 +172,9 @@ card it exits 2 before doing anything.
 
     python3 chip_smoke.py --only options
     python3 chip_smoke.py --only serving
+    python3 chip_smoke.py --only trainer
 
-build the kernels and run phase 10 or phase 11 alone (a quick check on a
+build the kernels and run phase 10, 11 or 12 alone (a quick check on a
 card); they print no summary and no last line.
 """
 
@@ -185,6 +205,17 @@ RGB_BANK = os.path.join(REPO, "data", "boxNew_full_templates.yml.gz")
 RGB_PARAMS = os.path.join(REPO, "data", "boxNew_full_params.yml.gz")
 SERVING_GOLDEN = os.path.join(REPO, "tests", "data", "torch_serving_golden.npz")
 STREAM_TOOL = os.path.join(REPO, "tools", "bench_streaming_torch.py")
+TRAINER_GOLDEN = os.path.join(REPO, "tests", "data", "torch_trainer_golden.npz")
+# Views of phase 12's timed RGB-D training: the committed banks' count.
+TRAIN_VIEWS = 2652
+# Metres between the trainer's D and the reference's: D reads the render's
+# centre depth, which the JAX CPU render puts up to 1e-3 mm off the plain
+# rasterizer's (XLA's FMAs); K4 equals the plain rasterizer bitwise.
+D_TOL = 1e-6
+# K1 and K2's shapes off their tiles: widths that are not a multiple of
+# K1's 92 output columns nor of K2's 4 pixels, 1- and 7-row frames, 1x1
+# and 3x3 frames.
+ODD_SHAPES = ((1, 7), (7, 13), (3, 3), (1, 1), (37, 131), (65, 249), (480, 643))
 # Degrees, mm between the card's poses and the reference's.  The card in
 # full f32 lands within 4e-5 deg / 1e-4 mm ("NVIDIA H100 80GB HBM3,
 # 700.00 W"); the TF32 control below must land outside.  The CPU tests'
@@ -724,16 +755,14 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
 
 def odd_shapes(dev: torch.device) -> list[str]:
     """K1 (u8 and f32 input) and K2 (T=5 and 8) against their plain
-    versions, bitwise, on shapes off the kernels' tiles: widths that are
-    not a multiple of K1's 92 output columns nor of K2's 4 pixels, 1- and
-    7-row frames, 1x1 and 3x3 frames.  Each K2 call writes into channels [5, 13)
-    of a 19-channel stack, whose other channels must keep their bytes."""
+    versions, bitwise, on ODD_SHAPES.  Each K2 call writes into channels
+    [5, 13) of a 19-channel stack, whose other channels must keep their
+    bytes."""
     from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
     from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    shapes = ((1, 7), (7, 13), (3, 3), (1, 1), (37, 131), (65, 249), (480, 643))
-    for H, W in shapes:
+    for H, W in ODD_SHAPES:
         x = torch.randint(0, 256, (2, H, W, 3), generator=gen, device=dev, dtype=torch.uint8)
         yy = torch.arange(H, device=dev)[:, None].float()
         xx = torch.arange(W, device=dev)[None, :].float()
@@ -751,7 +780,7 @@ def odd_shapes(dev: torch.device) -> list[str]:
                     f"K2 {H}x{W} T={T} differs from its plain version")
             require(bool((stack[:, :5] == 0xAB).all()) and bool((stack[:, 13:] == 0xAB).all()),
                     f"K2 {H}x{W} T={T} wrote outside its channel slice")
-    return [f"{H}x{W}" for H, W in shapes]
+    return [f"{H}x{W}" for H, W in ODD_SHAPES]
 
 
 def distinct_reads(shape, reads) -> int:
@@ -1546,6 +1575,179 @@ def serving_phase(dev: torch.device, perf: dict) -> tuple[dict, dict]:
     return per_request, per_step
 
 
+def trainer_phase(dev: torch.device, perf: dict) -> dict:
+    """Phase 12 (the offline trainer); adds K1's rows at the trainer's two
+    shapes and K4's at one trainer chunk to `perf` and returns the launch
+    counts of one chunk."""
+    import gzip
+    import shutil
+
+    from linemod_pose_estimation_tpu_torch.models import trainer as TTR
+    from linemod_pose_estimation_tpu_torch.models.renderer import Renderer
+    from linemod_pose_estimation_tpu_torch.models.templates import DetectorParams
+    from linemod_pose_estimation_tpu_torch.ops import _build
+    from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
+    from linemod_pose_estimation_tpu_torch.ops import features as F
+    from linemod_pose_estimation_tpu_torch.ops import raster as RA
+    from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+    from linemod_pose_estimation_tpu_torch.utils import scenes as S
+    from linemod_pose_estimation_tpu_torch.utils.stl import save_binary_stl
+    from linemod_pose_estimation_tpu_torch.utils.viewsphere import generate_views
+
+    with np.load(TRAINER_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    work = os.path.join(REPO, "build", "trainer_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    stl = os.path.join(work, "cuboid.stl")
+    save_binary_stl(stl, S.cuboid_mesh().triangles)
+    cfg = TTR.TrainerConfig()  # the reference's defaults: 640x480, 32,400 views
+    W, H, B = cfg.width, cfg.height, cfg.render_batch
+    views = generate_views(cfg.view_sphere)
+
+    # -- K4 at one trainer chunk, K1's magnitude variant at its two shapes ---
+    r = Renderer(stl, W, H, cfg.focal_length_x, cfg.focal_length_y, device=dev)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    Rs, Ts = f32([v.R for v in views[:B]]), f32([v.T for v in views[:B]])
+    coefs = RA.triangle_coefficients(r.triangles, Rs, Ts, r.K.expand(B, 3, 3))
+    name = f"trainer_{B}x{W}x{H}"
+    perf["raster_zbuffer"][name] = dict(**raster_vs_plain(coefs, W, H, name),
+                                        **raster_times(coefs, W, H))
+    out = r.render_batch([v.R for v in views[:B]], [v.T for v in views[:B]])
+    require(np.array_equal(out.rect.cpu().numpy(), g["rects"][:B]),
+            "trainer chunk: render rects differ from the reference's")
+    rgb1 = torch.stack([F.pyr_down(out.rgb[..., c]) for c in range(3)], -1).contiguous()
+    for name, x in ((f"trainer_level0_u8_{B}x{H}x{W}", out.rgb),
+                    (f"trainer_level1_f32_{B}x{H // 2}x{W // 2}", rgb1)):
+        (q, m), (qp, mp) = (CP.quantize_color_gradient_mag2(x, 10.0),
+                            F.quantize_color_gradient(x, 10.0))
+        require(torch.equal(q, qp) and torch.equal(m, mp),
+                f"K1 mag2 {name} differs from its plain version")
+        perf["quantize_cg"][name] = dict(
+            max_abs_err=max(max_abs_err(q, qp), float((m - mp).abs().max())),
+            set_frac=float((q > 0).float().mean()),
+            **kernel_times(lambda: CP.quantize_color_gradient_mag2(x, 10.0),
+                           "quantize_cg_kernel"),
+            plain_ms=cuda_ms(lambda: F.quantize_color_gradient(x, 10.0), 3),
+            bound=RL.quantize_cg(*x.shape[:3], x.element_size(), mag2=True)._asdict())
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for h, w in ODD_SHAPES:
+        x = torch.randint(0, 256, (2, h, w, 3), generator=gen, device=dev, dtype=torch.uint8)
+        for kind, xi in (("u8", x), ("f32", x.float())):
+            (q, m), (qp, mp) = (CP.quantize_color_gradient_mag2(xi, 10.0),
+                                F.quantize_color_gradient(xi, 10.0))
+            require(torch.equal(q, qp) and torch.equal(m, mp),
+                    f"K1 mag2 {h}x{w} {kind} differs from its plain version")
+    perf["quantize_cg"]["trainer_odd_shapes"] = dict(
+        max_abs_err=0, shapes=[f"{h}x{w}" for h, w in ODD_SHAPES])
+    emit("trainer_kernels_vs_plain", K4=perf["raster_zbuffer"][f"trainer_{B}x{W}x{H}"],
+         K1={k: v for k, v in perf["quantize_cg"].items() if k.startswith("trainer")})
+    del out, rgb1, coefs
+
+    # -- both modes at full width against the golden --------------------------
+    banks = {}
+    for mode in ("rgb", "rgbd"):
+        c = TTR.TrainerConfig(detector=DetectorParams(use_depth_normal=mode == "rgbd"))
+        tyml, pyml, gyml = (os.path.join(work, f"{mode}_{k}.yml") for k in ("t", "p", "g"))
+        t0 = time.perf_counter()
+        det, bank = TTR.train_and_write(stl, tyml, pyml, c, max_views=int(g["views"]),
+                                        device=dev)
+        wall = time.perf_counter() - t0
+        with open(tyml, "rb") as f:
+            require(f.read() == gzip.decompress(g[f"{mode}_templates_yml_gz"].tobytes()),
+                    f"trainer {mode}: the templates YAML differs from the reference's")
+        with open(gyml, "wb") as f:
+            f.write(gzip.decompress(g[f"{mode}_params_yml_gz"].tobytes()))
+        d_err = params_match(pyml, gyml, f"trainer {mode}")
+        require(np.array_equal(bank.metadata.Rect, g["rects"][g[f"{mode}_kept"]]),
+                f"trainer {mode}: Rect differs from the reference's renders")
+        banks[mode] = (det, bank)
+        emit("trainer_golden", mode=mode, views=int(g["views"]), templates=bank.num_templates,
+             templates_yaml_equal=True, params_equal=True, d_max_abs_err_m=d_err,
+             wall_s=wall)
+
+    # -- the trained bank detects its own view ---------------------------------
+    det, bank = banks["rgb"]
+    meta = bank.metadata
+    rgb0 = r.render(meta.R[0], meta.T[0]).rgb
+    res = det.match(rgb0, 88.0)[bank.class_id]
+    require(len(res) >= 1 and 0 in set(res.template_id.tolist()),
+            "trained bank: view 0 does not find template 0")
+    sim0 = float(res.similarity[res.template_id == 0].max())
+    require(sim0 >= 95.0, f"trained bank: template 0 at {sim0} on its own view")
+    emit("trainer_detects_own_view", template=0, similarity=sim0,
+         x=int(res.x[np.argmax(res.similarity)]), y=int(res.y[np.argmax(res.similarity)]),
+         rect0=list(det.template_rect0(bank.class_id, 0)))
+    del banks, det, bank
+
+    # -- throughput: RGB-D at full width, the committed banks' view count ----
+    c = TTR.TrainerConfig(detector=DetectorParams(use_depth_normal=True))
+    TTR.train_from_stl(stl, c, max_views=B, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    _build.reset_launch_counts()
+    plain = calls_of([(RA, "raster_zbuffer_plain"), (F, "quantize_color_gradient")],
+                     lambda: TTR.train_from_stl(stl, c, max_views=TRAIN_VIEWS, device=dev,
+                                                stats=stats))
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    n = stats["chunks"]
+    require(launches["raster_zbuffer"] == n and launches["quantize_cg"] == 2 * n,
+            f"trainer: {launches} over {n} chunks (want K4 x1, K1 x2 a chunk)")
+    require(not plain, f"trainer: plain versions ran on the card: {list(plain)}")
+    chunk_ms = stats.pop("chunk_device_ms")
+    per_chunk = {k: v // n for k, v in launches.items()}
+    emit("trainer_throughput", mode="rgbd", width=W, height=H, render_batch=B,
+         launches=launches, launches_per_chunk=per_chunk, plain_calls=0,
+         views_per_s=stats["views"] / stats["wall_s"],
+         device_ms=sum(chunk_ms), chunk_device_ms_median=float(np.median(chunk_ms)),
+         chunk_device_ms_max=max(chunk_ms), peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         **stats)
+
+    # -- the CLI, as a subprocess on the card ----------------------------------
+    tyml, pyml, gyml = (os.path.join(work, f"cli_{k}.yml") for k in ("t", "p", "g"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "linemod_pose_estimation_tpu_torch", "train", stl,
+         "--templates-out", tyml, "--params-out", pyml, "--max-views", str(int(g["views"])),
+         "--device", "cuda"], capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"CLI train exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    last = json.loads(lines[-1])
+    kept = int(len(g["rgb_kept"]))
+    require(last == {"templates": kept, "templates_yml": tyml, "params_yml": pyml},
+            f"CLI train: {last}")
+    require(lines[-2] == f"trained {kept} / {int(g['views'])} views", f"CLI train: {lines[-2]}")
+    with open(tyml, "rb") as f:
+        require(f.read() == gzip.decompress(g["rgb_templates_yml_gz"].tobytes()),
+                "CLI train: the templates YAML differs from the reference's")
+    with open(gyml, "wb") as f:
+        f.write(gzip.decompress(g["rgb_params_yml_gz"].tobytes()))
+    params_match(pyml, gyml, "CLI train")
+    shutil.rmtree(work, ignore_errors=True)
+    emit("trainer_cli", views=int(g["views"]), templates=kept, files_equal=True,
+         process_s=cli_s)
+    return per_chunk
+
+
+def params_match(path: str, golden: str, what: str) -> float:
+    """A renderer_params.yml against the reference's: R, T, K, Ori_dist,
+    Rect and the globals equal, D within D_TOL; returns D's largest
+    difference (m)."""
+    from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
+
+    (pm, pg), (gm, gg) = TemplateBank.read_params_yaml(path), TemplateBank.read_params_yaml(golden)
+    for k in ("R", "T", "K", "Ori_dist", "Rect"):
+        require(np.array_equal(getattr(pm, k), getattr(gm, k)), f"{what}: params {k} differ")
+    require(pg == gg, f"{what}: the renderer globals differ")
+    err = float(np.abs(pm.D - gm.D).max()) if len(pm.D) else 0.0
+    require(err <= D_TOL, f"{what}: D off the reference by {err} m")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1579,6 +1781,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "serving"]:
         serving_phase(dev, perf)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--only", "trainer"]:
+        trainer_phase(dev, perf)
         print(card, flush=True)
         return 0
     if sys.argv[1:]:
@@ -1749,6 +1955,7 @@ def main() -> int:
     del det
     launches10 = options_phase(dev, perf)
     launches11, launches_step = serving_phase(dev, perf)
+    launches12 = trainer_phase(dev, perf)
 
     # -- summary -------------------------------------------------------------
     # launches: of one B=32 pooled batch (phase 2b) for K1-K3, of one detect
@@ -1756,10 +1963,12 @@ def main() -> int:
     # and bound: summed over the shapes of those launches; the other timed
     # shapes (K3 over all slots and at detect's B=1, K4 at 8 poses, on the
     # 640x480 frame, on detect's own operands and on the accuracy detect's 16
-    # lanes) are rows of `shapes`.
+    # lanes; K1's magnitude variant and K4 at the trainer's chunk) are rows of
+    # `shapes`.
     off_path = ("all_slots", "detect_B1", "cascade_8x256x256", "frame_640x480",
                 "detect_captured", "accuracy_captured", "refine_round_captured",
-                "template_refinement_captured")
+                "template_refinement_captured", "trainer_16x640x480",
+                "trainer_level0_u8_16x480x640", "trainer_level1_f32_16x240x320")
     launches_of = {"spread_response_b1": (per_detect["spread_response"], "one detect"),
                    "raster_zbuffer": (per_detect["raster_zbuffer"], "one detect"),
                    "refine_scores": (launches7["refine_scores"], "one K5 chain")}
@@ -1785,6 +1994,7 @@ def main() -> int:
             launches_per_accuracy_detect=launches10.get(key.removesuffix("_b1")),
             launches_per_serving_request=launches11.get(key.removesuffix("_b1")),
             launches_per_streaming_step=launches_step.get(key.removesuffix("_b1")),
+            launches_per_trainer_chunk=launches12.get(key.removesuffix("_b1")),
             shapes=shapes))
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

@@ -1,17 +1,18 @@
 """Executable entry points: ``python -m linemod_pose_estimation_tpu_torch <cmd>``
-— the port of ``linemod_pose_estimation_tpu/__main__.py``'s detector and
-service commands, with the same arguments, defaults and JSON lines:
+— the port of ``linemod_pose_estimation_tpu/__main__.py``, with the same
+commands, arguments, defaults and JSON lines:
 
+  train    STL -> templates.yml + renderer_params.yml (renderer_node; one
+           progress line a chunk, then one JSON line)
   detect   banks + replay frames -> one detections JSON line per frame
   serve    object registry + frame source -> pose RPC (object_id requests
            on stdin, one base-frame Transform JSON line each, identity on a
            miss or an unknown id)
 
-Both take ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
-versions on the host).  Banks are read by the native loader, which is
-built with g++ on first use; the CLI fails if it cannot build rather than
-fall back to the much slower PyYAML reader.  The reference's ``train``
-command waits for the port of the trainer.
+Each takes ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
+versions on the host).  ``detect`` and ``serve`` read banks by the native
+loader, which is built with g++ on first use; they fail if it cannot build
+rather than fall back to the much slower PyYAML reader.
 """
 
 from __future__ import annotations
@@ -21,6 +22,32 @@ import json
 import sys
 
 import numpy as np
+
+
+def _add_trainer_args(p: argparse.ArgumentParser) -> None:
+    # The original renderer's defaults (its launch file's values).
+    p.add_argument("stl", help="CAD mesh (.stl, ASCII or binary)")
+    p.add_argument("--templates-out", required=True, help="templates.yml path")
+    p.add_argument("--params-out", required=True, help="renderer_params.yml path")
+    p.add_argument("--class-id", default="obj")
+    p.add_argument("--n-points", type=int, default=150)
+    p.add_argument("--angle-step", type=int, default=10)
+    p.add_argument("--radius-min", type=float, default=0.5)
+    p.add_argument("--radius-max", type=float, default=1.0)
+    p.add_argument("--radius-step", type=float, default=0.1)
+    p.add_argument("--width", type=int, default=640)
+    p.add_argument("--height", type=int, default=480)
+    p.add_argument("--fx", type=float, default=535.566011)
+    p.add_argument("--fy", type=float, default=537.168115)
+    p.add_argument("--near", type=float, default=0.1)
+    p.add_argument("--far", type=float, default=1000.0)
+    p.add_argument("--rgb-depth", action="store_true",
+                   help="train ColorGradient + DepthNormal (renderer_node); default is "
+                        "RGB-only (renderer_only_image_node, used for the Ensenso banks)")
+    p.add_argument("--max-views", type=int, default=None,
+                   help="cap the view count (smoke runs)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the renders and quantizers (default cuda)")
 
 
 def _cascade_args(p: argparse.ArgumentParser) -> None:
@@ -65,6 +92,28 @@ def _cascade_from_args(a):
         orientation_hypotheses=2 if acc else 1, nms_after_pose=acc,
         max_clusters=a.max_clusters, model_cap=a.model_cap, scene_cap=a.scene_cap,
     )
+
+
+def cmd_train(a) -> int:
+    from .models.templates import DetectorParams
+    from .models.trainer import TrainerConfig, train_from_stl
+    from .utils.viewsphere import ViewSphereParams
+
+    cfg = TrainerConfig(
+        view_sphere=ViewSphereParams(n_points=a.n_points, angle_step=a.angle_step,
+                                     radius_min=a.radius_min, radius_max=a.radius_max,
+                                     radius_step=a.radius_step),
+        width=a.width, height=a.height, focal_length_x=a.fx, focal_length_y=a.fy,
+        near=a.near, far=a.far, detector=DetectorParams(use_depth_normal=a.rgb_depth),
+        class_id=a.class_id,
+    )
+    _, bank = train_from_stl(a.stl, cfg, max_views=a.max_views, progress=True,
+                             device=a.device)
+    bank.write_templates_yaml(a.templates_out)
+    bank.write_params_yaml(a.params_out)
+    print(json.dumps({"templates": bank.num_templates, "templates_yml": a.templates_out,
+                      "params_yml": a.params_out}), flush=True)
+    return 0
 
 
 def _pipeline_from_args(a, templates_yml, params_yml, stl):
@@ -142,6 +191,10 @@ def main(argv=None) -> int:
                                  description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    pt = sub.add_parser("train", help="render view sphere -> template bank")
+    _add_trainer_args(pt)
+    pt.set_defaults(fn=cmd_train)
 
     pd = sub.add_parser("detect", help="detect objects in replay frames")
     pd.add_argument("templates", help="templates.yml")

@@ -30,6 +30,9 @@
 //      (94 columns) as a nibble vote word and a strength flag, into a
 //      4-row ring;
 //   4. the 3x3 vote and the output byte of row v - 7 (92 columns).
+// The trainer's variant (MAG2, a template flag, so the main path's launch
+// compiles to the instruction stream it had without it) also writes stage
+// 3's strongest-channel squared magnitude of each output pixel as f32.
 // Each stage reads only what earlier steps wrote, so one barrier closes a
 // step, and the stages of one step are free to overlap.  The step loop is
 // unrolled by 7, the blur ring's period, so the compiler can rename the
@@ -41,7 +44,8 @@
 //   255 * 64 * 64 = 1,044,480, and (acc + 2048) >> 12 is the plain
 //   version's floor((acc + 2048) / 4096); Sobel and the squared
 //   magnitudes (< 2^24) are exact integers, so their f32 values for the
-//   channel maximum, the tie rule and mag2 > weak2 equal the plain ones.
+//   channel maximum, the tie rule and mag2 > weak2 equal the plain ones,
+//   and so does the f32 mag2 output.
 // - replicate clamps: the blur clamps at the INPUT edge, Sobel at the
 //   BLURRED image's edge (blurred rows and columns outside the frame are
 //   never read: Sobel clamps its neighbour indices into the frame).
@@ -129,10 +133,10 @@ struct RowLoader {
   }
 };
 
-template <typename T>
+template <typename T, bool MAG2>
 __global__ void __launch_bounds__(NTH)
 quantize_cg_kernel(const T* __restrict__ img, uint8_t* __restrict__ out,
-                   int H, int W, int S, float weak2) {
+                   float* __restrict__ mag_out, int H, int W, int S, float weak2) {
   __shared__ int s_in[2][3][IN_COLS];    // this step's and the next step's input row
   __shared__ int s_bl[NS][3][NTH];       // [row % NS][channel][column - (bx0 - 2)]
   __shared__ uint32_t s_vote[NS][NTH];   // [row % NS][column - (bx0 - 1)]: 1 << 4 bin
@@ -212,6 +216,10 @@ quantize_cg_kernel(const T* __restrict__ img, uint8_t* __restrict__ out,
         const int bin = interior ? orientation_bin(dx, dy) : 0;  // border votes bin 0
         vote = 1u << (4 * bin);
         strong = static_cast<float>(mag2) > weak2;
+        // xb is one of this block's output columns for t in [1, OW] (stage
+        // 4 reads its strength flag); write its magnitude on output rows.
+        if (MAG2 && rb >= y0 && rb < y_end && t >= 1 && t <= OW)
+          mag_out[((size_t)b * H + rb) * W + xb] = static_cast<float>(mag2);
       }
       s_vote[(unsigned)rb % NS][t] = vote;
       s_strong[(unsigned)rb % NS][t] = strong;
@@ -241,10 +249,23 @@ quantize_cg_kernel(const T* __restrict__ img, uint8_t* __restrict__ out,
   }
 }
 
+template <typename T>
+void launch(const void* img, void* out, void* mag2, dim3 grid, int H, int W, int rows,
+            float weak2, cudaStream_t s) {
+  const T* in = static_cast<const T*>(img);
+  uint8_t* q = static_cast<uint8_t*>(out);
+  if (mag2)
+    quantize_cg_kernel<T, true><<<grid, NTH, 0, s>>>(in, q, static_cast<float*>(mag2), H,
+                                                     W, rows, weak2);
+  else
+    quantize_cg_kernel<T, false><<<grid, NTH, 0, s>>>(in, q, nullptr, H, W, rows, weak2);
+}
+
 }  // namespace
 
-// `rows`: output rows per block (the strip height S).
-extern "C" int lpe_quantize_cg(const void* img, int img_is_f32, void* out,
+// `rows`: output rows per block (the strip height S).  `mag2`: null, or a
+// (B, H, W) f32 output for the strongest channel's squared magnitude.
+extern "C" int lpe_quantize_cg(const void* img, int img_is_f32, void* out, void* mag2,
                                int B, int H, int W, int rows, float weak2,
                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -254,10 +275,8 @@ extern "C" int lpe_quantize_cg(const void* img, int img_is_f32, void* out,
   dim3 grid((W + OW - 1) / OW, (H + rows - 1) / rows, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (img_is_f32)
-    quantize_cg_kernel<float><<<grid, NTH, 0, s>>>(
-        static_cast<const float*>(img), static_cast<uint8_t*>(out), H, W, rows, weak2);
+    launch<float>(img, out, mag2, grid, H, W, rows, weak2, s);
   else
-    quantize_cg_kernel<uint8_t><<<grid, NTH, 0, s>>>(
-        static_cast<const uint8_t*>(img), static_cast<uint8_t*>(out), H, W, rows, weak2);
+    launch<uint8_t>(img, out, mag2, grid, H, W, rows, weak2, s);
   return static_cast<int>(cudaGetLastError());
 }

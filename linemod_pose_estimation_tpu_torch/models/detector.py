@@ -1,8 +1,10 @@
 """The Detector: cv::linemod::Detector-style host API over the scoring
-engine — the port of ``linemod_pose_estimation_tpu/models/detector.py``
-without template extraction (`add_template`), which is not ported yet.
+engine — the port of ``linemod_pose_estimation_tpu/models/detector.py``.
 
-`match_raw` / `match` are the single-frame engine: preprocess (K1, K2 at
+`add_template` extracts a template from a view (its quantizations on the
+detector's device: K1's trainer variant on the card) and appends it to
+its class's list; `bank()` builds the class's padded bank from that list
+when first asked.  `match_raw` / `match` are the single-frame engine: preprocess (K1, K2 at
 B=1), the exact int8 GEMM over every coarse position, template-major
 top-k selection, and cv::linemod's exact walk (K3 at B=1).
 `make_matcher_fn` is the reference's serving fn: the same engine with
@@ -21,7 +23,7 @@ import torch
 
 from ..ops import match as M
 from ..utils.device import DEFAULT_DEVICE, resolve_device
-from .templates import DetectorParams, TemplateBank
+from .templates import DetectorParams, TemplateBank, TemplateFeatures, extract_template
 
 
 def to_device(a, dtype, device) -> torch.Tensor:
@@ -52,29 +54,49 @@ class Detector:
         self.params = params or DetectorParams()
         self.f_cap = f_cap
         self.device = resolve_device(device)
+        self._templates: dict[str, list[TemplateFeatures]] = {}
         self._banks: dict[str, TemplateBank] = {}
         self._operands: dict[str, tuple] = {}
 
     @property
     def class_ids(self) -> list[str]:
-        return list(self._banks.keys())
+        return list(self._templates.keys())
 
     def num_templates(self, class_id: str | None = None) -> int:
         """Templates of one class (0 for an unknown one), or of all."""
         if class_id is not None:
-            return len(self._banks[class_id].templates) if class_id in self._banks else 0
-        return sum(len(b.templates) for b in self._banks.values())
+            return len(self._templates.get(class_id, []))
+        return sum(len(v) for v in self._templates.values())
+
+    def add_template(self, rgb, mask, class_id: str = "obj", depth_mm=None,
+                     precomputed: dict | None = None) -> int:
+        """Extract and store a template (``templates.extract_template``);
+        returns its id, or -1 when the view has too few features (the
+        original trainer skips such views).  Drops the class's built bank
+        and its device operands."""
+        t = extract_template(rgb, depth_mm, mask, self.params, precomputed, device=self.device)
+        if t is None:
+            return -1
+        self._templates.setdefault(class_id, []).append(t)
+        self._banks.pop(class_id, None)
+        self._operands.pop(class_id, None)
+        return len(self._templates[class_id]) - 1
 
     def attach_bank(self, bank: TemplateBank) -> None:
+        self._templates[bank.class_id] = bank.templates
         self._banks[bank.class_id] = bank
         self._operands.pop(bank.class_id, None)
 
     def bank(self, class_id: str) -> TemplateBank:
+        """The class's bank, built from its template list when first asked."""
+        if class_id not in self._banks:
+            self._banks[class_id] = TemplateBank(class_id, self.params,
+                                                 self._templates[class_id], f_cap=self.f_cap)
         return self._banks[class_id]
 
     def template_rect0(self, class_id: str, template_id: int) -> tuple[int, int, int, int]:
         """A template's level-0 (x, y, w, h) bounding box."""
-        return self._banks[class_id].templates[template_id].rect0
+        return self._templates[class_id][template_id].rect0
 
     # -- serialization ------------------------------------------------------
 

@@ -1,15 +1,24 @@
-"""Template banks: the padded per-level feature arrays fed to the matcher.
+"""Template extraction and template banks — the port of
+``linemod_pose_estimation_tpu/models/templates.py``.
 
-The bank half of ``linemod_pose_estimation_tpu/models/templates.py``:
-parameters, per-template feature lists, the padded LevelFeatures stacks
-and the derived extents, plus the per-template pose
-metadata of a renderer_params.yml (``TemplateMetadata``,
-``RendererGlobals``), and the bank's serialization in cv::linemod's own
-YAML schema.  Banks and params load through the native C++ loader
-(``utils/native.py``) where it builds and through PyYAML
-(``utils/opencv_yaml.py``) otherwise, with equal results; the writers
-need neither.  Template extraction is not ported yet.  Bank arrays live
-on the CPU; matchers copy what they need to their device.
+- Extraction (cv::linemod's Modality::extractTemplate): the quantizations
+  of every pyramid level come from the device (``quantize_levels``: K1's
+  variant with the squared magnitudes on the card, the plain versions on
+  the CPU; DepthNormal once at level 0, subsampled per level); the
+  selection is host numpy: the strongest scattered gradient features
+  above strong_threshold (a stable sort by magnitude, then the greedy
+  scatter walk with a shrinking distance), and interior surface-normal
+  features ranked by their distance to the mask's border; both levels are
+  cropped to a common bbox (cv::linemod cropTemplates).
+- Banks: parameters, per-template feature lists, the padded LevelFeatures
+  stacks and the derived extents, the per-template pose metadata of a
+  renderer_params.yml (``TemplateMetadata``, ``RendererGlobals``), the
+  bank's serialization in cv::linemod's own YAML schema, and the
+  renderer's per-template render dump.  Banks and params load through the
+  native C++ loader (``utils/native.py``) where it builds and through
+  PyYAML (``utils/opencv_yaml.py``) otherwise, with equal results; the
+  writers need neither.  Bank arrays live on the CPU; matchers copy what
+  they need to their device.
 """
 
 from __future__ import annotations
@@ -18,9 +27,13 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from scipy.ndimage import distance_transform_edt
 
+from ..ops import cuda_preprocess as CP
+from ..ops import features as F
 from ..ops.match import LevelFeatures
 from ..utils import opencv_yaml as oy
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def _maybe_ungz(path: str) -> str:
@@ -116,6 +129,210 @@ class TemplateFeatures:
     norm: list[np.ndarray]
     size: list[tuple[int, int]]  # (h, w) per level of the cropped bbox
     rect0: tuple[int, int, int, int]  # level-0 (x, y, w, h) bbox
+
+
+# ---------------------------------------------------------------------------
+# Extraction
+# ---------------------------------------------------------------------------
+
+
+def _select_scattered(candidates: np.ndarray, scores: np.ndarray, num: int) -> np.ndarray:
+    """OpenCV selectScatteredFeatures: walk candidates in score order, keep
+    those >= `distance` from every ALREADY-KEPT feature; when the scan wraps,
+    relax distance by 1 and continue — accepted features persist across
+    relaxations, as in OpenCV's loop."""
+    order = np.argsort(-scores, kind="stable")
+    return _select_from_sorted(candidates[order], num)
+
+
+def _select_from_sorted(cand: np.ndarray, num: int) -> np.ndarray:
+    """selectScatteredFeatures over candidates ALREADY in score order (a
+    stable order: ties keep their candidate order)."""
+    n = cand.shape[0]
+    if n == 0:
+        return cand
+    distance = float(n / num + 1)
+    cap = min(num, n)
+    cy = cand[:, 0].astype(np.float64)
+    cx = cand[:, 1].astype(np.float64)
+    # mind2[i] = squared distance from candidate i to its nearest KEPT
+    # feature, updated on every accept.  A wrap is one vectorized
+    # mind2 >= d^2 test plus a short sequential re-check, and wraps that
+    # cannot admit anything are skipped by jumping the distance to the
+    # next one that can: the same candidates in the same order as the
+    # naive walk (dense depth-normal candidate sets start the distance at
+    # hundreds of pixels).
+    mind2 = np.full(n, np.inf)
+    kept_idx: list[int] = []
+    while len(kept_idx) < cap and distance >= 1.0:
+        d2 = distance * distance
+        passing = np.nonzero(mind2 >= d2)[0]
+        for j in passing:
+            if mind2[j] >= d2:  # re-check vs accepts earlier in this wrap
+                kept_idx.append(j)
+                np.minimum(
+                    mind2, (cy - cy[j]) ** 2 + (cx - cx[j]) ** 2, out=mind2
+                )
+                if len(kept_idx) == cap:
+                    break
+        if len(kept_idx) == cap:
+            break
+        # After a full wrap every candidate has mind2 < d2; the next wrap
+        # that can admit anything is at distance - k with
+        # k = ceil(distance - sqrt(max mind2)).
+        s = float(np.sqrt(mind2.max()))
+        distance -= max(1.0, float(np.ceil(distance - s)))
+    return cand[kept_idx].copy() if kept_idx else cand[:0].copy()
+
+
+def _bit_to_index(bitmask: np.ndarray) -> np.ndarray:
+    """uint8 one-hot bitmask -> bin index (valid only where nonzero)."""
+    return np.argmax((bitmask[..., None] >> np.arange(8)) & 1, axis=-1).astype(np.int32)
+
+
+def extract_gradient_features(
+    mask: np.ndarray, params: ModalityParams, num: int,
+    quant: np.ndarray, mag2: np.ndarray,
+) -> np.ndarray | None:
+    """(y, x, ori) rows of one pyramid level from its bitmask and squared
+    magnitudes, or None if too few features."""
+    strong2 = params.strong_threshold**2
+    sel = (quant != 0) & (mag2 > strong2) & (mask > 0)
+    ys, xs = np.nonzero(sel)
+    if ys.size < num // 2 or ys.size == 0:
+        return None
+    oris = _bit_to_index(quant[ys, xs])
+    cand = np.stack([ys, xs, oris], axis=1).astype(np.int32)
+    feats = _select_scattered(cand, mag2[ys, xs], num)
+    return feats if feats.shape[0] >= num // 2 else None
+
+
+def extract_normal_features(
+    mask: np.ndarray, params: ModalityParams, num: int, quant: np.ndarray,
+) -> np.ndarray | None:
+    """(y, x, ori) rows of one pyramid level from its DepthNormal bitmask:
+    candidates deeper than extract_threshold inside the mask, ranked by
+    their distance to its border; or None if too few features."""
+    dist = distance_transform_edt(mask > 0)
+    sel = (quant != 0) & (dist > params.extract_threshold)
+    ys, xs = np.nonzero(sel)
+    if ys.size == 0:
+        return None
+    oris = _bit_to_index(quant[ys, xs])
+    cand = np.stack([ys, xs, oris], axis=1).astype(np.int32)
+    feats = _select_scattered(cand, dist[ys, xs], num)
+    return feats if feats.shape[0] >= num // 2 else None
+
+
+def quantize_levels(rgb: torch.Tensor, depth_mm: torch.Tensor | None,
+                    params: "DetectorParams") -> tuple[list, list]:
+    """The quantizations extraction selects from, for a batch of views on
+    one device: rgb (B, H, W, 3) u8 and, with DepthNormal, depth_mm
+    (B, H, W) in mm -> (grad, norm), per pyramid level: grad[l] = (bitmask
+    (B, H_l, W_l) u8, squared magnitude f32) of K1's trainer variant
+    (level 0 on the u8 frame, each next level on the pyrDown of the last
+    as integer-valued f32), norm[l] the DepthNormal bitmask, quantized
+    once at level 0 and subsampled [::2, ::2] per level (cv::linemod's
+    DepthNormalPyramid::pyrDown)."""
+    grad, norm = [], []
+    cur = rgb
+    qn = None
+    if params.use_depth_normal:
+        qn = F.quantize_depth_normal(depth_mm, params.depth.distance_threshold,
+                                     params.depth.difference_threshold)
+    for l in range(params.pyramid_levels):
+        if params.use_color_gradient:
+            grad.append(CP.quantize_color_gradient_mag2(cur.contiguous(),
+                                                        params.color.weak_threshold))
+        if qn is not None:
+            norm.append(qn)
+        if l + 1 < params.pyramid_levels:
+            if params.use_color_gradient:
+                cur = torch.stack([F.pyr_down(cur[..., c]) for c in range(cur.shape[-1])], -1)
+            if qn is not None:
+                qn = qn[..., ::2, ::2]
+    return grad, norm
+
+
+def extract_template(
+    rgb: np.ndarray,
+    depth_mm: np.ndarray | None,
+    mask: np.ndarray,
+    params: DetectorParams,
+    precomputed: dict | None = None,
+    device=DEFAULT_DEVICE,
+) -> TemplateFeatures | None:
+    """Extract a multi-level template; None mimics addTemplate == -1 (too
+    few features: the view is skipped).
+
+    `precomputed`, when given, holds per-level host quantizations from a
+    batched device pass, {"grad": [(quant, mag2), ...], "norm": [quant,
+    ...]}, of the same window as `mask`, and `rgb` and `depth_mm` are not
+    read; otherwise the quantizations are computed on `device` from `rgb`
+    (H, W, 3) u8 and, with DepthNormal, `depth_mm` (H, W) in mm (None
+    then gives None, as the reference's addTemplate fails)."""
+    levels = params.pyramid_levels
+    if precomputed is None:
+        if params.use_depth_normal and depth_mm is None:
+            return None
+        dev = resolve_device(device)
+
+        def t(a, dtype):
+            a = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+            return a.to(device=dev, dtype=dtype)[None]
+
+        grad, norm = quantize_levels(
+            t(rgb, torch.uint8), t(depth_mm, torch.float32) if params.use_depth_normal else None,
+            params)
+        precomputed = {"grad": [(q[0].cpu().numpy(), m[0].cpu().numpy()) for q, m in grad],
+                       "norm": [n[0].cpu().numpy() for n in norm]}
+    grad_l: list[np.ndarray] = []
+    norm_l: list[np.ndarray] = []
+    cur_mask = (mask > 0).astype(np.uint8)
+    for l in range(levels):
+        if params.use_color_gradient:
+            g = extract_gradient_features(cur_mask, params.color, params.color.num_features,
+                                          *precomputed["grad"][l])
+            if g is None:
+                return None
+            grad_l.append(g)
+        if params.use_depth_normal:
+            n = extract_normal_features(cur_mask, params.depth, params.depth.num_features,
+                                        precomputed["norm"][l])
+            if n is None:
+                return None
+            norm_l.append(n)
+        cur_mask = cur_mask[::2, ::2]
+
+    # Crop to the common bbox in level-0 coords (cv::linemod cropTemplates).
+    all_xy0: list[np.ndarray] = []
+    for l in range(levels):
+        for fl in ([grad_l[l]] if params.use_color_gradient else []) + (
+            [norm_l[l]] if params.use_depth_normal else []
+        ):
+            all_xy0.append(fl[:, :2].astype(np.int64) << l)
+    cat = np.concatenate(all_xy0, axis=0)
+    y0, x0 = cat[:, 0].min(), cat[:, 1].min()
+    y1, x1 = cat[:, 0].max(), cat[:, 1].max()
+    sizes = []
+    for l in range(levels):
+        oy_, ox_ = int(y0) >> l, int(x0) >> l
+        if params.use_color_gradient:
+            grad_l[l] = grad_l[l] - np.array([oy_, ox_, 0], np.int32)
+        if params.use_depth_normal:
+            norm_l[l] = norm_l[l] - np.array([oy_, ox_, 0], np.int32)
+        sizes.append((int(y1 - y0) >> l, int(x1 - x0) >> l))
+    return TemplateFeatures(
+        grad=grad_l if params.use_color_gradient else [],
+        norm=norm_l if params.use_depth_normal else [],
+        size=sizes,
+        rect0=(int(x0), int(y0), int(x1 - x0 + 1), int(y1 - y0 + 1)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Bank arrays
+# ---------------------------------------------------------------------------
 
 
 def stack_level_features(
@@ -269,6 +486,42 @@ class TemplateBank:
         for name in _GLOBAL_FIELDS:
             doc[f"renderer_{name}"] = getattr(g, name)
         oy.dump(doc, path)
+
+    @staticmethod
+    def write_render_dump(
+        path: str,
+        depths_mm: list[np.ndarray],
+        masks: list[np.ndarray],
+        rects: list[tuple[int, int, int, int]],
+    ) -> None:
+        """The original renderer's writeLinemodRender: per template its
+        rendered depth (u16 mm), mask (u8) and Rect, as `Template i ->
+        {ID, Depth, Mask, Rect}` FileStorage nodes."""
+        doc: dict = {}
+        for i, (d, m, rc) in enumerate(zip(depths_mm, masks, rects)):
+            doc[f"Template {i}"] = {
+                "ID": i,
+                "Depth": oy.CvMatrix(np.asarray(d, np.uint16)),
+                "Mask": oy.CvMatrix(np.asarray(m, np.uint8)),
+                "Rect": [int(v) for v in rc],
+            }
+        oy.dump(doc, path)
+
+    @staticmethod
+    def read_render_dump(path: str) -> list:
+        """A render dump back: a list of (depth_mm u16, mask u8, rect)."""
+        doc = oy.load(path)
+        out = []
+        i = 0
+        while f"Template {i}" in doc:
+            t = doc[f"Template {i}"]
+            out.append((
+                np.asarray(t["Depth"], np.uint16),
+                np.asarray(t["Mask"], np.uint8),
+                tuple(int(v) for v in t["Rect"]),
+            ))
+            i += 1
+        return out
 
     @staticmethod
     def read_params_yaml(path: str) -> tuple[TemplateMetadata, RendererGlobals]:

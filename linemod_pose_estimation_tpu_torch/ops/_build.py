@@ -46,8 +46,8 @@ launch_counts = {"quantize_cg": 0, "spread_response": 0, "walk_scores": 0,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (img, img_is_f32, out, B, H, W, rows, weak2, device, stream)
-    "lpe_quantize_cg": (_P, _I, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P),
+    # (img, img_is_f32, out, mag2 or NULL, B, H, W, rows, weak2, device, stream)
+    "lpe_quantize_cg": (_P, _I, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P),
     # (quant, out, B, H, W, T, C, c0, rows, device, stream)
     "lpe_spread_response": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (R0, oris, dys, dxs, live, gy0, gx0, n_valid, out,

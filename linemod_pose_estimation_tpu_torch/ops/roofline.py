@@ -50,11 +50,14 @@ def bound(nbytes: int, ops: int) -> Bound:
 QUANTIZE_CG_OPS_PER_PX = 84 + 39 + 9 + 6 + 21 + 4 + 1 + 25 + 3
 
 
-def quantize_cg(B: int, H: int, W: int, in_itemsize: int) -> Bound:
+def quantize_cg(B: int, H: int, W: int, in_itemsize: int, mag2: bool = False) -> Bound:
     """K1 on (B, H, W, 3) input of `in_itemsize` bytes (1 for u8, 4 for
-    f32) -> (B, H, W) u8."""
+    f32) -> (B, H, W) u8, and with `mag2` (the trainer's variant) also the
+    (B, H, W) f32 squared magnitudes: 4 more bytes a pixel written, no
+    more operations (the magnitudes are formed either way)."""
     px = B * H * W
-    return bound(px * 3 * in_itemsize + px, px * QUANTIZE_CG_OPS_PER_PX)
+    return bound(px * 3 * in_itemsize + px + (4 * px if mag2 else 0),
+                 px * QUANTIZE_CG_OPS_PER_PX)
 
 
 def spread_response_ops_per_px(T: int) -> int:

@@ -102,3 +102,15 @@ def project(K: torch.Tensor, pts_cam: torch.Tensor) -> torch.Tensor:
     u = K[0, 0] * pts_cam[..., 0] / z + K[0, 2]
     v = K[1, 1] * pts_cam[..., 1] / z + K[1, 2]
     return torch.stack([u, v], dim=-1)
+
+
+def look_at_object(eye: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """Object->camera rotation (3, 3) for a camera at `eye` looking at the
+    origin, in the bank's convention: rows s (right), -u (down), f
+    (forward = normalize(-eye)), with the GL basis s = f x up, u = s x f."""
+    fwd = -eye
+    fwd = fwd / torch.linalg.vector_norm(fwd)
+    s = torch.linalg.cross(fwd, up)
+    s = s / torch.linalg.vector_norm(s).clamp(min=1e-12)
+    u_gl = torch.linalg.cross(s, fwd)
+    return torch.stack([s, -u_gl, fwd], dim=0)

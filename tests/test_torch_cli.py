@@ -3,12 +3,14 @@
 fixture's bank and params by Detector.write / write_params_yaml, the
 cuboid as a binary STL, two replay frames: the fixture scene and an empty
 one), against the JAX reference's DetectionPipeline and PoseService on the
-same files.
+same files; and ``train ... --device cpu`` against the reference CLI's
+``train`` on the same arguments.
 
 Tolerances: detection rects equal, scores within 1e-4, poses and the
 base-frame transform within the CPU detect tolerance of 0.25 degrees /
 0.5 mm; the identity transform on a miss and on an unknown object id,
-exactly.
+exactly; `train`'s templates YAML byte for byte, its params as the
+test says.
 """
 
 import json
@@ -27,6 +29,7 @@ from linemod_pose_estimation_tpu.models import cascade as JC
 from linemod_pose_estimation_tpu.models.pipeline import DetectionPipeline as JPipe
 from linemod_pose_estimation_tpu_torch.api import nodes as TN
 from linemod_pose_estimation_tpu_torch.api import transforms as TTR
+from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
 from linemod_pose_estimation_tpu_torch.utils.scenes import cuboid_mesh
 from linemod_pose_estimation_tpu_torch.utils.stl import load_stl, save_binary_stl
 from test_torch_cascade import DEG_TOL, MM_TOL, _pose_err, meta, pipelines  # noqa: F401
@@ -118,6 +121,45 @@ def test_cli_serve_against_reference(files):
                         TTR.make_affine(*want.translation, want.rotation[3],
                                         *want.rotation[:3]))
     assert deg <= DEG_TOL and mm <= MM_TOL, (deg, mm)
+
+
+@pytest.mark.parametrize("mode", [[], ["--rgb-depth"]], ids=["rgb", "rgbd"])
+def test_cli_train_against_reference(tmp_path, mode, capsys):
+    """`train` as a subprocess at 160x120 (the focal lengths / 4) on the
+    cuboid STL against the reference CLI on the same arguments (run in this
+    process): the templates YAML byte for byte; the params' R, T, K,
+    Ori_dist, Rect and globals equal and D within 1e-6 m (D reads the
+    render's centre depth, which the JAX CPU render puts up to 1e-3 mm
+    off: XLA contracts its products into FMAs); the progress lines equal,
+    and the last line is the reference's JSON line with the port's
+    paths."""
+    from linemod_pose_estimation_tpu.__main__ import main as ref_main
+
+    stl = str(tmp_path / "cuboid.stl")
+    save_binary_stl(stl, cuboid_mesh().triangles)
+    args = ["--n-points", "4", "--angle-step", "180", "--radius-min", "0.5",
+            "--radius-max", "0.5", "--width", "160", "--height", "120",
+            "--fx", str(535.566011 / 4), "--fy", str(537.168115 / 4), "--max-views", "6",
+            "--class-id", "box", *mode]
+    out = {k: str(tmp_path / f"{k}.yml") for k in ("tt", "tp", "jt", "jp")}
+    r = run_cli(["train", stl, "--templates-out", out["tt"], "--params-out", out["tp"],
+                 *args, "--device", "cpu"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    assert ref_main(["train", stl, "--templates-out", out["jt"], "--params-out", out["jp"],
+                     *args]) == 0
+    ref_lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[:-1] == ref_lines[:-1]  # the progress lines
+    got, want = json.loads(lines[-1]), json.loads(ref_lines[-1])
+    assert got == {**want, "templates_yml": out["tt"], "params_yml": out["tp"]}
+    assert got["templates"] >= 4
+    with open(out["tt"], "rb") as fa, open(out["jt"], "rb") as fb:
+        assert fa.read() == fb.read()
+    (pm, pg), (jm, jg) = (TemplateBank.read_params_yaml(out[k]) for k in ("tp", "jp"))
+    for k in ("R", "T", "K", "Ori_dist", "Rect"):
+        np.testing.assert_array_equal(getattr(pm, k), getattr(jm, k), err_msg=k)
+    np.testing.assert_allclose(pm.D, jm.D, rtol=0, atol=1e-6)
+    assert pg == jg
 
 
 def test_cli_rejects_a_bad_object_spec(files):

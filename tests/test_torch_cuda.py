@@ -685,3 +685,69 @@ def test_pose_service_on_the_card_against_the_golden(cuda):
         cos = np.clip((np.trace(got[:3, :3].T @ want[:3, :3]) - 1) / 2, -1, 1)
         assert np.degrees(np.arccos(cos)) <= 0.01
     assert svc.linemod_object_pose(int(g["unknown_id"])) == identity
+
+
+# -- the trainer: K1's magnitude variant, the trainer on the card ----------
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(480, 640), *ODD_SHAPES], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_quantize_cg_mag2_kernel_equals_plain(cuda, shape):
+    """K1's trainer variant: the bitmask and the squared magnitudes equal
+    the plain quantizer's bit for bit (u8, as f32, and its f32 pyrDown
+    where the frame is wide enough for pyrDown's reflected border), and
+    its bitmask equals the matcher's launch."""
+    H, W = shape
+    g = torch.Generator(device=cuda).manual_seed(H * 7 + W)
+    rgb = torch.randint(0, 256, (3, H, W, 3), device=cuda, generator=g, dtype=torch.uint8)
+    yy = torch.arange(H, device=cuda)[:, None].float()
+    xx = torch.arange(W, device=cuda)[None, :].float()
+    rgb[1, ..., 1] = ((torch.sin(yy / 5.0) + torch.cos(xx / 3.0)) * 60 + 128).to(torch.uint8)
+    rgb[2] = 90  # flat: every magnitude 0
+    xs = [rgb, rgb.float()]
+    if min(H, W) >= 3:
+        xs.append(torch.stack([TF.pyr_down(rgb[..., c].float()) for c in range(3)],
+                              -1).contiguous())
+    for x in xs:
+        q, m = CP.quantize_color_gradient_mag2(x, 10.0)
+        qp, mp = TF.quantize_color_gradient(x, 10.0)
+        assert m.dtype == torch.float32 and torch.equal(q, qp) and torch.equal(m, mp)
+        assert torch.equal(q, CP.quantize_color_gradient(x, 10.0))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("use_depth", [False, True], ids=["rgb", "rgbd"])
+def test_trainer_on_the_card_equals_cpu(cuda, tmp_path, use_depth):
+    """train_and_write on the card (K4, K1's magnitude variant) and on the
+    CPU (their plain versions) at 160x120 on the cuboid: the templates YAML
+    byte-identical; R, T, K, Ori_dist and Rect equal, D within 1e-6 m; one
+    K4 and two K1 launches a chunk."""
+    from linemod_pose_estimation_tpu_torch.models import templates as TT
+    from linemod_pose_estimation_tpu_torch.models import trainer as TTR
+    from linemod_pose_estimation_tpu_torch.utils import viewsphere as TV
+    from linemod_pose_estimation_tpu_torch.utils.stl import save_binary_stl
+
+    stl = str(tmp_path / "cuboid.stl")
+    save_binary_stl(stl, S.cuboid_mesh().triangles)
+    cfg = TTR.TrainerConfig(
+        view_sphere=TV.ViewSphereParams(n_points=6, angle_step=120, radius_min=0.3,
+                                        radius_max=0.5),
+        width=160, height=120, focal_length_x=535.566011 / 4, focal_length_y=537.168115 / 4,
+        render_batch=8, detector=TT.DetectorParams(use_depth_normal=use_depth))
+    files = {}
+    for dev in ("cpu", "cuda"):
+        files[dev] = (str(tmp_path / f"{dev}_t.yml"), str(tmp_path / f"{dev}_p.yml"))
+        _build.reset_launch_counts()
+        _, bank = TTR.train_and_write(stl, *files[dev], cfg, device=dev)
+        if dev == "cuda":
+            chunks = -(-len(TV.generate_views(cfg.view_sphere)) // cfg.render_batch)
+            assert _build.launch_counts["raster_zbuffer"] == chunks
+            assert _build.launch_counts["quantize_cg"] == 2 * chunks
+    assert bank.num_templates >= 8
+    with open(files["cpu"][0], "rb") as a, open(files["cuda"][0], "rb") as b:
+        assert a.read() == b.read()
+    (pm, pg), (cm, cg) = (TemplateBank.read_params_yaml(files[d][1]) for d in ("cuda", "cpu"))
+    for k in ("R", "T", "K", "Ori_dist", "Rect"):
+        np.testing.assert_array_equal(getattr(pm, k), getattr(cm, k), err_msg=k)
+    np.testing.assert_allclose(pm.D, cm.D, rtol=0, atol=1e-6)
+    assert pg == cg

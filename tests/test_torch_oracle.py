@@ -199,3 +199,29 @@ def test_opencv_written_bank_loads_in_port(bridge, tmp_path, monkeypatch, route)
         assert tuple(bank.templates[0].size[level]) == (h_, w_)
         assert sorted((int(f[1]), int(f[0]), int(f[2])) for f in feats) == sorted(
             map(tuple, np.asarray(bank.templates[0].grad[level]).tolist()))
+
+
+def test_match_parity_own_extractions(rng):
+    """tests/test_oracle_parity.py's own-extraction check on the port: each
+    engine trains with its own feature extraction (the port's
+    Detector.add_template, cv::linemod's addTemplate) on the same view, then
+    matches the same shifted scene: both find it at >= 99 within the
+    plateau distance (4 px) of each other."""
+    patch = textured_patch(rng)
+    rgb, mask = plant(patch, 60, 100)
+    det = Detector(device="cpu")
+    assert det.add_template(rgb, mask, "obj") == 0
+    o = ORC.LinemodOracle()
+    tid, _ = o.add_template(rgb, mask)
+    assert tid == 0
+
+    scene, _ = plant(patch, 88, 52)
+    xyt, sim = o.match(scene, 85.0)
+    ours = det.match(scene, 85.0)["obj"]
+    assert len(xyt) > 0 and len(ours) > 0
+    assert float(sim.max()) >= 99.0
+    assert float(ours.similarity.max()) >= 99.0
+    ob = int(np.argmax(sim))
+    ub = int(np.argmax(ours.similarity))
+    assert abs(int(xyt[ob][0]) - int(ours.x[ub])) <= 4
+    assert abs(int(xyt[ob][1]) - int(ours.y[ub])) <= 4
