@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives Detector.read -> BatchedMatcher(prune_mode="pooled") -> Matches
-(and every other ported path: phases 6-12) on the committed RGB-D bank at
+(and every other ported path: phases 6-13) on the committed RGB-D bank at
 full width (480x640 frames, 16 response
 channels, Fmax 128), after building the hand-written CUDA kernels K1
 (ColorGradient quantizer), K2 (spread + response) and K3 (local walk)
@@ -160,6 +160,24 @@ from csrc/.  Phases, one JSON line each:
       no plain version called); then `python -m
       linemod_pose_estimation_tpu_torch train` as a subprocess on the card
       over the golden's views, its JSON line and files against the golden.
+  13. the off-main-path matchers and the aux modules: Detector(engine=
+      "gather") and Detector(engine="auto") (the GEMM) over the 2652-
+      template RGB-D bank on the four cascade golden frames, every Matches
+      field equal to the golden's (which the reference's gather engine
+      made), the launches of K1, K2b and K3 in one gather match; on each
+      frame's level-1 responses coarse_scores, coarse_scores_conv (the
+      bank's dense filters) and coarse_scores_gemm bitwise equal,
+      select_candidates_approx equal to select_candidates and to a stable
+      descending sort of the flat scores; CUDA-event ms of each coarse
+      engine and of match_raw per engine, the dense filters' bytes; then
+      grasping_pose_region_growing, mls_smooth, estimate_normals and
+      euclidean_cluster_largest on the sweep views' scene clouds and a
+      4096-point ROI of golden frame 0 (its cloud rebuilt on the card)
+      against tests/data/torch_aux_golden.npz: masks equal, pose, smoothed
+      points and normals within GRASP_TOL, points with fewer than three MLS
+      neighbours counted, ms per call; then rgb_to_hsv_u8 (bitwise, by
+      SHA-256), hsv_color_filter, absolute_rectangle and nms_distance on
+      the golden frames, their detections and seeded inputs, equal.
 
 Then a kernels summary line (per kernel: launches on its path, the
 summed time, plain time and bound of those launches at their shapes,
@@ -173,8 +191,9 @@ card it exits 2 before doing anything.
     python3 chip_smoke.py --only options
     python3 chip_smoke.py --only serving
     python3 chip_smoke.py --only trainer
+    python3 chip_smoke.py --only aux
 
-build the kernels and run phase 10, 11 or 12 alone (a quick check on a
+build the kernels and run phase 10, 11, 12 or 13 alone (a quick check on a
 card); they print no summary and no last line.
 """
 
@@ -206,6 +225,7 @@ RGB_PARAMS = os.path.join(REPO, "data", "boxNew_full_params.yml.gz")
 SERVING_GOLDEN = os.path.join(REPO, "tests", "data", "torch_serving_golden.npz")
 STREAM_TOOL = os.path.join(REPO, "tools", "bench_streaming_torch.py")
 TRAINER_GOLDEN = os.path.join(REPO, "tests", "data", "torch_trainer_golden.npz")
+AUX_GOLDEN = os.path.join(REPO, "tests", "data", "torch_aux_golden.npz")
 # Views of phase 12's timed RGB-D training: the committed banks' count.
 TRAIN_VIEWS = 2652
 # Metres between the trainer's D and the reference's: D reads the render's
@@ -229,6 +249,19 @@ POSE_TOL = (0.01, 0.01)
 # plateau of its 1e-8 epsilon: the card and the CPU port both land 0.027
 # degrees / 0.035 mm from the golden ("NVIDIA H100 80GB HBM3, 700.00 W").
 OPTION_POSE_TOL = {"nonlinear": (0.05, 0.05)}
+# Phase 13 against tests/data/torch_aux_golden.npz (tools/make_torch_aux_
+# golden.py writes it; its inputs are rebuilt here the same way).  Grasp
+# tolerances: degrees, mm, metres of the smoothed points, and the normals
+# of the reference's smoothed points; the CPU port measures 2.7e-4 deg,
+# 1.9e-4 mm, 2.4e-7 m and 6e-7 there (tests/test_torch_segmentation.py).
+GRASP_TOL = (1e-3, 1e-3, 1e-6, 1e-5)
+FX, FY = 535.566011, 537.168115
+AUX_EUCLID_TOL = 0.005
+AUX_GATE_RANGES = (((0.0, 180.0), (0.0, 255.0), (0.0, 255.0)),
+                   ((0.0, 30.0), (50.0, 255.0), (50.0, 255.0)),
+                   ((90.0, 150.0), (0.0, 255.0), (0.0, 255.0)),
+                   ((0.0, 180.0), (0.0, 20.0), (0.0, 222.0)))
+AUX_NMS_SIZES = (1, 3)
 THRESHOLD = 91.0
 B_MAIN = 32
 TILE_TO = 10624  # the bank tiled up to >= 10,240 templates, padded to 128
@@ -1733,6 +1766,178 @@ def trainer_phase(dev: torch.device, perf: dict) -> dict:
     return per_chunk
 
 
+def aux_phase(dev: torch.device) -> dict:
+    """Phase 13: Detector(engine="gather") at full width against the cascade
+    golden, its three coarse engines against each other, the exact
+    approx select, then the grasp planner, the segmentation ops and the
+    aux filters against tests/data/torch_aux_golden.npz.  Returns the
+    launch counts of one gather match."""
+    from linemod_pose_estimation_tpu_torch.models.detector import Detector
+    from linemod_pose_estimation_tpu_torch.models.grasp import grasping_pose_region_growing
+    from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
+    from linemod_pose_estimation_tpu_torch.ops import _build
+    from linemod_pose_estimation_tpu_torch.ops import filters as FL
+    from linemod_pose_estimation_tpu_torch.ops import match as M
+    from linemod_pose_estimation_tpu_torch.ops import segmentation as SG
+    from linemod_pose_estimation_tpu_torch.utils import pointcloud as P
+
+    with np.load(CASCADE_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    with np.load(AUX_GOLDEN) as z:
+        a = {k: z[k] for k in z.files}
+    thr = float(g["threshold"])
+    on = lambda x: torch.as_tensor(x, device=dev)
+
+    # -- (a) the gather engine at full width ----------------------------------
+    bank = TemplateBank.read_templates_yaml(BANK)
+    cid = bank.class_id
+    dets = {}
+    for engine in ("gather", "auto"):
+        dets[engine] = Detector(bank.params, device=dev, engine=engine)
+        dets[engine].attach_bank(bank)
+    rgbs, deps = golden_frames(dev)
+    for engine, det in dets.items():
+        det.match_raw(rgbs[0], thr, depth_mm=deps[0])  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    first = dets["gather"].match_raw(rgbs[0], thr, depth_mm=deps[0])[cid]
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    for k in ("quantize_cg", "spread_response", "walk_scores"):
+        require(launches[k] > 0, f"kernel {k} was not launched by the gather match")
+    for f in range(rgbs.shape[0]):
+        for engine, det in dets.items():
+            m = first if (f, engine) == (0, "gather") else \
+                det.match_raw(rgbs[f], thr, depth_mm=deps[f])[cid]
+            for name, x in m._asdict().items():
+                require(np.array_equal(x.cpu().numpy(), g["m_" + name][f]),
+                        f"frame {f}: engine {engine} {name} differs from the golden")
+    match_ms = {e: event_times(lambda d=d: d.match_raw(rgbs[0], thr, depth_mm=deps[0]), 5)
+                for e, d in dets.items()}
+
+    T1, Kc1 = bank.params.t_pyramid[1], bank.max_cell_extent(1)
+    feats1 = bank.merged_features(1).to(dev)
+    W_dense = bank.dense_weights(1).to(dev)
+    W_gemm = dets["auto"]._gemm_weight(cid)
+    coarse_ms = {}
+    for f in range(rgbs.shape[0]):
+        pyr = M.preprocess_frame(rgbs[f], deps[f], use_depth=True)
+        R1 = torch.cat([pyr.grad_r1, pyr.norm_r1])
+        engines = {"gather": lambda: M.coarse_scores(R1, feats1, T1, Kc1),
+                   "conv": lambda: M.coarse_scores_conv(R1, W_dense, T1),
+                   "gemm": lambda: M.coarse_scores_gemm(R1, W_gemm, T1, Kc1)}
+        raw = {e: fn() for e, fn in engines.items()}
+        require(torch.equal(raw["gather"], raw["conv"]) and torch.equal(raw["gather"],
+                                                                        raw["gemm"]),
+                f"frame {f}: the coarse engines disagree")
+        if f == 0:
+            coarse_ms = {e: event_times(fn, 5) for e, fn in engines.items()}
+        Hc, Wc = raw["gather"].shape[1:]
+        vpos = M.position_validity(feats1.size, T1, Hc, Wc)
+        approx = M.select_candidates_approx(raw["gather"], feats1.count, vpos, thr - 5.0, 512)
+        exact = M.select_candidates(raw["gather"], feats1.count, vpos, thr - 5.0, 512)
+        require(matches_equal(approx, exact), f"frame {f}: approx select != select")
+        # The flat-index order, independently: a stable descending sort.
+        sim = 100.0 * raw["gather"].float() / (4.0 * feats1.count.clamp(min=1).float())[
+            :, None, None]
+        order = torch.sort(-torch.where(vpos, sim, -1.0).reshape(-1), stable=True).indices[:512]
+        flat = (approx.template_id.long() * Hc + approx.cell_y) * Wc + approx.cell_x
+        require(torch.equal(flat, order), f"frame {f}: select order is not the flat order")
+        if f == 0:
+            top = approx.similarity
+            n_ties = int((top[1:] == top[:-1]).sum())
+    del W_dense, R1, raw
+    emit("gather_engine", frames=int(rgbs.shape[0]), templates=bank.num_templates,
+         matches_equal_golden=True, engines=list(dets), coarse_engines_equal=True,
+         approx_select_equal=True, ties_in_frame0_select=n_ties,
+         launches_per_gather_match=launches, coarse_ms=coarse_ms, match_raw_ms=match_ms,
+         dense_weights_bytes=bank.num_templates * 8 * bank.num_modalities
+         * bank.extent(1) ** 2, extent1=bank.extent(1), max_cell_extent1=Kc1)
+    del dets, W_gemm
+
+    # -- (b) the grasp planner and the segmentation ops -----------------------
+    K = on(np.array([[FX, 0, 320.0], [0, FY, 240.0], [0, 0, 1.0]], np.float32))
+    cloud = P.depth_to_cloud(P.true_div(deps[0], 1000.0), K)
+    pts, valid = P.extract_rect_points(cloud, g["p_rect"][0, 0], 4096)
+    roi_err = float((pts.cpu() - torch.from_numpy(a["roi_pts"])).abs().max())
+    require(np.array_equal(valid.cpu().numpy(), a["roi_valid"]) and roi_err <= GRASP_TOL[2],
+            f"ROI cloud off the reference's by {roi_err} m")
+    clouds = {"roi": (a["roi_pts"], a["roi_valid"])}
+    for name in ("view00", "view45"):
+        with np.load(os.path.join(REPO, "data", f"sweep_{name}_clouds.npz")) as z:
+            clouds[name] = (z["scene"], z["svalid"])
+    grasp = {"roi_cloud_max_abs_err_m": roi_err}
+    for name, (p, v) in clouds.items():
+        p, v = on(p), on(v)
+        pose, region = grasping_pose_region_growing(p, v)
+        sm = SG.mls_smooth(p, v)
+        euclid = SG.euclidean_cluster_largest(p, v, AUX_EUCLID_TOL)
+        n, c = SG.estimate_normals(on(a[f"{name}_mls"]), v, k=50)
+        full = on(a[f"{name}_support"] >= 3)
+        deficient = int((v & ~full).sum())
+        row = dict(
+            points=int(v.sum()), region=int(region.sum()),
+            region_flips=int((region.cpu() != torch.from_numpy(a[f"{name}_region"])).sum()),
+            euclid=int(euclid.sum()),
+            euclid_flips=int((euclid.cpu() != torch.from_numpy(a[f"{name}_euclid"])).sum()),
+            rank_deficient_mls_points=deficient,
+            mls_max_abs_err_m=float(torch.where(full[:, None], (sm - on(a[f"{name}_mls"])).abs(),
+                                                0.0).max()),
+            normals_max_abs_err=float((n - on(a[f"{name}_normals"])).abs().max()),
+            pose_err_deg_mm=pose_err(pose.cpu().numpy(), a[f"{name}_pose"]),
+            grasp_ms=timed(lambda: grasping_pose_region_growing(p, v), 3),
+            euclid_ms=timed(lambda: SG.euclidean_cluster_largest(p, v, AUX_EUCLID_TOL), 3))
+        grasp[name] = row
+        require(row["region_flips"] == 0 and row["euclid_flips"] == 0,
+                f"{name}: region or euclidean mask differs from the reference: {row}")
+        require(row["pose_err_deg_mm"][0] <= GRASP_TOL[0]
+                and row["pose_err_deg_mm"][1] <= GRASP_TOL[1]
+                and row["mls_max_abs_err_m"] <= GRASP_TOL[2]
+                and row["normals_max_abs_err"] <= GRASP_TOL[3],
+                f"{name}: grasp off the reference: {row}")
+    emit("grasp_segmentation", tol_deg_mm_m_normal=GRASP_TOL, **grasp)
+
+    # -- (c) the aux filters ----------------------------------------------------
+    rng = np.random.default_rng(13)
+    noise = on(rng.integers(0, 256, (480, 640, 3)).astype(np.uint8))
+    imgs = list(rgbs) + [noise]
+    for f, img in enumerate(imgs):
+        h = FL.rgb_to_hsv_u8(img).cpu().numpy()
+        want = a["hsv_sha256"][f] if f < 4 else a["hsv_noise_sha256"]
+        sample = a["hsv_sample"][f] if f < 4 else a["hsv_noise_sample"]
+        require(np.array_equal(h[::16, ::16], sample)
+                and hashlib.sha256(h.tobytes()).digest() == want.tobytes(),
+                f"image {f}: HSV differs from the reference's")
+    gate = [[bool(FL.hsv_color_filter(imgs[f], on(r), *ranges)) for ranges in AUX_GATE_RANGES]
+            for f, r in zip(a["gate_frame"], a["gate_rects"])]
+    require(np.array_equal(gate, a["gate"]), "hsv_color_filter differs from the reference")
+    frame_rect = np.array([0, 0, 640, 480])
+    rects = [[FL.absolute_rectangle(1500.0 - deps[f], on(roi), 10.0).tolist()
+              for roi in (g["p_rect"][f, 0], frame_rect)] for f in range(4)]
+    green = noise[..., 1].float()
+    rects_noise = [FL.absolute_rectangle(green, on(r), 250.0).tolist()
+                   for r in a["gate_rects"][-64:]]
+    require(np.array_equal(rects, a["absrect"]) and np.array_equal(rects_noise,
+                                                                   a["absrect_noise"]),
+            "absolute_rectangle differs from the reference")
+    for i, s in enumerate(AUX_NMS_SIZES):
+        for f in range(4):
+            cells = np.stack([g["m_y"][f] // 8, g["m_x"][f] // 8, g["m_template_id"][f] % 4], -1)
+            keep = FL.nms_distance(on(cells.astype(np.int32)), on(g["m_similarity"][f]),
+                                   on(g["m_valid"][f]), s)
+            require(np.array_equal(keep.cpu().numpy(), a["nms_keep"][f, i]),
+                    f"frame {f}: nms_distance differs from the reference")
+        keep = FL.nms_distance(on(a["nms_cells"]), on(a["nms_scores"]), on(a["nms_valid"]), s)
+        require(np.array_equal(keep.cpu().numpy(), a["nms_noise_keep"][i]),
+                "seeded nms_distance differs from the reference")
+    emit("aux_filters", hsv_images=len(imgs), hsv_bitwise=True, gates=int(len(gate)),
+         absrects=4 * 2 + len(rects_noise), nms_cases=len(AUX_NMS_SIZES) * 5, equal=True,
+         hsv_ms=timed(lambda: FL.rgb_to_hsv_u8(noise), 3),
+         nms_ms=timed(lambda: FL.nms_distance(on(a["nms_cells"]), on(a["nms_scores"]),
+                                              on(a["nms_valid"]), 3), 3))
+    return launches
+
+
 def params_match(path: str, golden: str, what: str) -> float:
     """A renderer_params.yml against the reference's: R, T, K, Ori_dist,
     Rect and the globals equal, D within D_TOL; returns D's largest
@@ -1785,6 +1990,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "trainer"]:
         trainer_phase(dev, perf)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--only", "aux"]:
+        aux_phase(dev)
         print(card, flush=True)
         return 0
     if sys.argv[1:]:
@@ -1956,6 +2165,7 @@ def main() -> int:
     launches10 = options_phase(dev, perf)
     launches11, launches_step = serving_phase(dev, perf)
     launches12 = trainer_phase(dev, perf)
+    launches13 = aux_phase(dev)
 
     # -- summary -------------------------------------------------------------
     # launches: of one B=32 pooled batch (phase 2b) for K1-K3, of one detect
@@ -1995,6 +2205,7 @@ def main() -> int:
             launches_per_serving_request=launches11.get(key.removesuffix("_b1")),
             launches_per_streaming_step=launches_step.get(key.removesuffix("_b1")),
             launches_per_trainer_chunk=launches12.get(key.removesuffix("_b1")),
+            launches_per_gather_match=launches13.get(key.removesuffix("_b1")),
             shapes=shapes))
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

@@ -4,19 +4,26 @@ The JAX package ``linemod_pose_estimation_tpu`` is the reference this
 package is held against; the layout mirrors it module for module:
 
 - ``utils``  — the native bank loader, STL loading, SE(3) geometry and
-               point-cloud primitives, scene helpers.
+               point-cloud primitives, the view sphere, scene helpers, the
+               cv::linemod oracle.
 - ``ops``    — quantized modalities, spreading / response maps, the
-               template-scoring engines, the rasterizer, ICP, and the
+               template-scoring engines (the exact int8 GEMM, the gather
+               scan and the convolution), the rasterizer, ICP, cloud
+               segmentation (normals, MLS smoothing, region growing,
+               euclidean clustering), the aux image filters, and the
                hand-written CUDA kernels (``csrc/``) with their plain
                PyTorch versions.
-- ``models`` — template banks, the Detector, the batched serving matcher
-               and PipelinedRunner, the renderer, the detection cascade and
-               DetectionPipeline.
+- ``models`` — template banks, the Detector (``engine=`` "gather",
+               "conv" or "auto"), the batched serving matcher and
+               PipelinedRunner, the renderer, the detection cascade and
+               DetectionPipeline, the offline trainer, the grasp planner.
 - ``parallel`` — host-side multi-camera ingest (FrameBatcher, PacedSource).
 - ``api``    — the pose service, the application nodes and replay
                sources, the robot-frame transform chain.
+- ``eval``   — the accuracy harness (match-position error against known
+               poses, head to head against the cv::linemod oracle).
 - ``__main__`` — the CLI: ``python -m linemod_pose_estimation_tpu_torch
-               detect|serve ... [--device cpu]``.
+               train|detect|serve ... [--device cpu]``.
 
 Nothing here imports ``jax``: the reference package imports it at package
 import time, so even its numpy-only helpers are copied, not imported.

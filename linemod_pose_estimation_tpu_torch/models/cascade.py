@@ -35,9 +35,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
+from ..ops.filters import greedy_suppress
 from ..ops.icp import (_apply, icp_nonlinear_schedule, icp_two_stage,
                        icp_two_stage_plane)
 from ..ops.match import Matches, _topk_first_index
@@ -196,8 +196,7 @@ def _greedy_nms(x, y, w, h, key: torch.Tensor, valid: torch.Tensor,
     """Greedy NMS over boxes (x, y, w, h as f32 (C,)) with inclusive pixel
     extents: walk them by descending `key` (stable: ties keep the lower
     index first), each still-alive one suppressing strictly lower-ranked
-    overlaps.  The IoU matrix is computed where the boxes live; the short
-    greedy walk runs on the host.  Returns the keep mask."""
+    overlaps (``ops.filters.greedy_suppress``).  Returns the keep mask."""
     x2, y2 = x + w - 1.0, y + h - 1.0
     iw = (torch.minimum(x2[:, None], x2[None, :])
           - torch.maximum(x[:, None], x[None, :]) + 1.0).clamp(min=0.0)
@@ -206,15 +205,7 @@ def _greedy_nms(x, y, w, h, key: torch.Tensor, valid: torch.Tensor,
     inter = iw * ih
     union = (w * h)[:, None] + (w * h)[None, :] - inter
     over = (inter / union.clamp(min=1e-6)) > iou_threshold
-    order = torch.argsort(-torch.where(valid, key, -torch.inf), stable=True)
-    over, order = over.cpu().numpy(), order.cpu().numpy()
-    keep = valid.cpu().numpy().copy()
-    rank_of = np.empty_like(order)
-    rank_of[order] = np.arange(order.shape[0])
-    for i, idx in enumerate(order):
-        if keep[idx]:
-            keep &= ~(over[idx] & (rank_of > i))
-    return torch.from_numpy(keep).to(valid.device)
+    return greedy_suppress(over, key, valid)
 
 
 def nms_iou(clusters: ClusterSet, iou_threshold: float) -> torch.Tensor:

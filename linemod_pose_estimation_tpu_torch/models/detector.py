@@ -4,14 +4,19 @@ engine — the port of ``linemod_pose_estimation_tpu/models/detector.py``.
 `add_template` extracts a template from a view (its quantizations on the
 detector's device: K1's trainer variant on the card) and appends it to
 its class's list; `bank()` builds the class's padded bank from that list
-when first asked.  `match_raw` / `match` are the single-frame engine: preprocess (K1, K2 at
-B=1), the exact int8 GEMM over every coarse position, template-major
-top-k selection, and cv::linemod's exact walk (K3 at B=1).
-`make_matcher_fn` is the reference's serving fn: the same engine with
-the position-major GEMM and select.  Frame batches go through
-``models.serving.BatchedMatcher``.  `device` places the bank operands
-and the computation (default the card; `device="cpu"` runs the plain
-PyTorch versions on the host).
+when first asked.  `match_raw` / `match` are the single-frame engine:
+preprocess (K1, K2 at B=1), coarse scores at every position,
+template-major top-k selection, and cv::linemod's exact walk (K3 at B=1).
+`engine` picks the coarse scorer: "gather" is the reference's gather scan
+(``ops.match.coarse_scores``); "conv" and "auto" take the exact int8
+GEMM (``coarse_scores_gemm``) on every device.  Both give equal Matches.
+The reference's "auto" picks by how fast XLA's convolution is on the
+backend (gather on its CPU), which is no concern of the port's.
+`make_matcher_fn` is the reference's serving fn: the GEMM engine with
+the position-major GEMM and select, whatever `engine` says.  Frame
+batches go through ``models.serving.BatchedMatcher``.  `device` places
+the bank operands and the computation (default the card; `device="cpu"`
+runs the plain PyTorch versions on the host).
 """
 
 from __future__ import annotations
@@ -50,13 +55,18 @@ class MatchResult:
 
 class Detector:
     def __init__(self, params: DetectorParams | None = None, f_cap: int = 64,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, engine: str = "auto"):
+        """engine: "gather" (the gather scan), "conv" or "auto" (the exact
+        int8 GEMM); any other value takes the gather scan, as the
+        reference's does."""
         self.params = params or DetectorParams()
         self.f_cap = f_cap
         self.device = resolve_device(device)
+        self.engine = engine
         self._templates: dict[str, list[TemplateFeatures]] = {}
         self._banks: dict[str, TemplateBank] = {}
         self._operands: dict[str, tuple] = {}
+        self._gemm: dict[str, M.MatmulWeight] = {}
 
     @property
     def class_ids(self) -> list[str]:
@@ -78,14 +88,18 @@ class Detector:
         if t is None:
             return -1
         self._templates.setdefault(class_id, []).append(t)
-        self._banks.pop(class_id, None)
-        self._operands.pop(class_id, None)
+        self._forget(class_id)
         return len(self._templates[class_id]) - 1
 
     def attach_bank(self, bank: TemplateBank) -> None:
         self._templates[bank.class_id] = bank.templates
+        self._forget(bank.class_id)
         self._banks[bank.class_id] = bank
-        self._operands.pop(bank.class_id, None)
+
+    def _forget(self, class_id: str) -> None:
+        """Drop a class's built bank and its device operands."""
+        for d in (self._banks, self._operands, self._gemm):
+            d.pop(class_id, None)
 
     def bank(self, class_id: str) -> TemplateBank:
         """The class's bank, built from its template list when first asked."""
@@ -114,17 +128,23 @@ class Detector:
 
     # -- matching -----------------------------------------------------------
 
-    def _bank_operands(self, class_id: str):
-        """(feats1, feats0, W_gemm) of a class on the detector's device,
-        built once."""
+    def _bank_feats(self, class_id: str) -> tuple[M.LevelFeatures, M.LevelFeatures]:
+        """(feats1, feats0) of a class on the detector's device, moved once."""
         if class_id not in self._operands:
             bank = self.bank(class_id)
-            feats1 = bank.merged_features(1).to(self.device)
-            W = M.build_gemm_weights(feats1, 8 * bank.num_modalities,
-                                     self.params.t_pyramid[1], bank.max_cell_extent(1))
-            self._operands[class_id] = (feats1, bank.merged_features(0).to(self.device),
-                                        M.MatmulWeight.from_kn(W))
+            self._operands[class_id] = (bank.merged_features(1).to(self.device),
+                                        bank.merged_features(0).to(self.device))
         return self._operands[class_id]
+
+    def _gemm_weight(self, class_id: str) -> M.MatmulWeight:
+        """The class's one-hot GEMM weights on the detector's device, built
+        once."""
+        if class_id not in self._gemm:
+            bank = self.bank(class_id)
+            W = M.build_gemm_weights(self._bank_feats(class_id)[0], 8 * bank.num_modalities,
+                                     self.params.t_pyramid[1], bank.max_cell_extent(1))
+            self._gemm[class_id] = M.MatmulWeight.from_kn(W)
+        return self._gemm[class_id]
 
     def match_raw(self, rgb, threshold: float, depth_mm=None,
                   class_ids: list[str] | None = None, top_k: int = 512
@@ -171,9 +191,13 @@ class Detector:
         p = self.params
         T0, T1 = p.t_pyramid
         bank = self.bank(class_id)
-        feats1, feats0, W_gemm = self._bank_operands(class_id)
+        feats1, feats0 = self._bank_feats(class_id)
         R0, R1 = self._response_stacks(pyr)
-        raw = M.coarse_scores_gemm(R1, W_gemm, T1, bank.max_cell_extent(1))
+        Kc1 = bank.max_cell_extent(1)
+        if self.engine in ("conv", "auto"):
+            raw = M.coarse_scores_gemm(R1, self._gemm_weight(class_id), T1, Kc1)
+        else:
+            raw = M.coarse_scores(R1, feats1, T1, Kc1)
         Hc, Wc = raw.shape[1:]
         vpos = M.position_validity(feats1.size, T1, Hc, Wc)
         # The coarse gate is 5 below the reported (level-0) threshold.
@@ -196,7 +220,8 @@ class Detector:
         p = self.params
         T0, T1 = p.t_pyramid
         bank = self.bank(class_id)
-        feats1, feats0, W_gemm = self._bank_operands(class_id)
+        feats1, feats0 = self._bank_feats(class_id)
+        W_gemm = self._gemm_weight(class_id)
         Kc1, E0 = bank.max_cell_extent(1), bank.extent(0)
         plain = use_pallas_refine is False
 

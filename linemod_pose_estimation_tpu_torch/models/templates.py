@@ -395,6 +395,7 @@ class TemplateBank:
         self.metadata = metadata
         self.globals = globals_ or RendererGlobals()
         self._merged: dict[int, LevelFeatures] = {}
+        self._dense: dict[int, torch.Tensor] = {}
         self._build_arrays()
 
     def _build_arrays(self) -> None:
@@ -461,6 +462,16 @@ class TemplateBank:
             dummy = [torch.zeros((8, 8, 8), dtype=torch.uint8)] * len(fl)
             self._merged[level], _ = merge_modalities(fl, dummy)
         return self._merged[level]
+
+    def dense_weights(self, level: int) -> torch.Tensor:
+        """The one-hot convolution filters (N, 8 * modalities, E, E) int8 of
+        ``ops.match.coarse_scores_conv``, E = extent(level) (cached)."""
+        from ..ops.match import build_dense_weights
+
+        if level not in self._dense:
+            self._dense[level] = build_dense_weights(
+                self.merged_features(level), 8 * self.num_modalities, self.extent(level))
+        return self._dense[level]
 
     # -- serialization ------------------------------------------------------
 

@@ -32,6 +32,10 @@ preprocess_frame (the B=1 call of the batched preprocess), the
 exhaustive GEMM (coarse_scores_gemm), the reference's template-major
 select_candidates and refine_candidates_opencv (the B=1 walk);
 ``Detector.make_matcher_fn`` takes the position-major GEMM and select.
+``Detector(engine="gather")`` scores with coarse_scores instead, the
+reference's gather scan over linearize_responses' planes; its other twin,
+coarse_scores_conv over build_dense_weights' filter bank, and
+select_candidates_approx (exact here) complete the reference's surface.
 
 Every output equals the reference's bit for bit.  What changed on the way:
 
@@ -1895,6 +1899,94 @@ def select_candidates(raw: torch.Tensor, total_features: torch.Tensor,
         vals,
         vals >= thr,
     )
+
+
+def select_candidates_approx(raw: torch.Tensor, total_features: torch.Tensor,
+                             valid_pos: torch.Tensor, threshold: float, top_k: int
+                             ) -> CoarseMatches:
+    """The reference's approx_max_k select, exact: on the reference's CPU
+    backend approx_max_k is the exact top-k, lower flat index first on
+    ties, which is select_candidates (the same sim expression)."""
+    return select_candidates(raw, total_features, valid_pos, threshold, top_k)
+
+
+# ---------------------------------------------------------------------------
+# The gather and convolution engines (Detector(engine="gather"))
+# ---------------------------------------------------------------------------
+
+
+def linearize_responses(R: torch.Tensor, T: int, max_cell_extent: int) -> torch.Tensor:
+    """(C, H, W) responses -> (C*T*T, Hc + Kc, Wc + Kc) planes,
+    L[c*T*T + ry*T + rx, i, j] = R[c, i*T + ry, j*T + rx], zero-padded by
+    Kc cells bottom/right so any feature's cell shift reads in bounds."""
+    C, H, W = R.shape
+    Hc, Wc = H // T, W // T
+    Kc = max_cell_extent
+    Rc = R[:, : Hc * T, : Wc * T].reshape(C, Hc, T, Wc, T)
+    L = Rc.permute(0, 2, 4, 1, 3).reshape(C * T * T, Hc, Wc)
+    return torch.nn.functional.pad(L, (0, Kc, 0, Kc))
+
+
+def coarse_scores(R: torch.Tensor, feats: LevelFeatures, T: int,
+                  max_cell_extent: int) -> torch.Tensor:
+    """Raw scores (N, Hc, Wc) int32 of every template at every T-strided
+    position: for each feature slot, one gather of every template's
+    (Hc, Wc) window of its plane, added where the slot is live.  The
+    reference reads each window with lax.dynamic_slice, which clamps its
+    start into the planes: the plane to [0, C*T*T - 1] and the cell shift
+    to [0, Kc]; the port clamps the same way."""
+    L = linearize_responses(R, T, max_cell_extent)
+    CTT, Hp, Wp = L.shape
+    Hc, Wc = Hp - max_cell_extent, Wp - max_cell_extent
+    N, Fmax = feats.oris.shape
+    dev = R.device
+    floor = lambda a: torch.div(a, T, rounding_mode="floor")
+    dy, dx = feats.offsets[..., 0].long(), feats.offsets[..., 1].long()
+    chan = (feats.oris.long() * (T * T) + torch.remainder(dy, T) * T
+            + torch.remainder(dx, T)).clamp(0, CTT - 1)
+    base = (chan * Hp + floor(dy).clamp(0, max_cell_extent)) * Wp \
+        + floor(dx).clamp(0, max_cell_extent)  # (N, Fmax) window origins
+    win = (torch.arange(Hc, device=dev)[:, None] * Wp
+           + torch.arange(Wc, device=dev)[None, :]).reshape(-1)
+    flat = L.reshape(-1)
+    acc = torch.zeros((N, Hc * Wc), dtype=torch.int32, device=dev)
+    for f in range(Fmax):
+        vals = flat[base[:, f, None] + win[None, :]]
+        acc += torch.where(feats.live[:, f, None], vals.to(torch.int32), 0)
+    return acc.view(N, Hc, Wc)
+
+
+def build_dense_weights(feats: LevelFeatures, C: int, E: int) -> torch.Tensor:
+    """One-hot convolution filters (N, C, E, E) int8: W[n, ori, dy, dx]
+    counts template n's live features there, with multiplicity (a
+    scatter-add, as in the reference), offsets clipped to [0, E - 1].
+    Built once per bank (``TemplateBank.dense_weights``)."""
+    dy = feats.offsets[..., 0].clamp(0, E - 1)
+    dx = feats.offsets[..., 1].clamp(0, E - 1)
+    idx = feats.oris * (E * E) + dy * E + dx
+    return _scatter_counts(C * E * E, idx, feats).view(-1, C, E, E)
+
+
+def coarse_scores_conv(R: torch.Tensor, W_dense: torch.Tensor, T: int) -> torch.Tensor:
+    """Raw scores (N, Hc, Wc) int32 as one stride-T convolution of the
+    responses with the dense filters (N, C, E, E), exact: R is zero-padded
+    bottom/right so the output grid is coarse_scores' floor(H/T) x
+    floor(W/T) (where a template overhangs, it reads zeros; position
+    validity masks those downstream), and the convolution runs as an
+    im2col of the stride-T windows into one exact int8 GEMM, filters
+    first so the output comes out template-major."""
+    C, H, W = R.shape
+    N, Cw, E, _ = W_dense.shape
+    if Cw != C:
+        raise ValueError(f"filters have {Cw} channels, the responses {C}")
+    Hc, Wc = H // T, W // T
+    pad_h = max((Hc - 1) * T + E - H, 0)
+    pad_w = max((Wc - 1) * T + E - W, 0)
+    Rp = torch.nn.functional.pad(R.to(torch.int8), (0, pad_w, 0, pad_h))
+    P = Rp.unfold(1, E, T).unfold(2, E, T)[:, :Hc, :Wc]  # (C, Hc, Wc, E, E)
+    P = P.permute(1, 2, 0, 3, 4).reshape(Hc * Wc, C * E * E)
+    out = int8_mm(W_dense.reshape(N, C * E * E), MatmulWeight.from_nk(P))
+    return out.reshape(N, Hc, Wc)
 
 
 def refine_candidates_opencv(

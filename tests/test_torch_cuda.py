@@ -7,7 +7,9 @@ ICP variants, scene normals, the in-plane sweep, the local-descriptor pose,
 detect in six configurations) on the card against the CPU and the golden;
 then the serving surface: K4 at template_refinement's launch against
 plain, PipelinedRunner against blocking calls, PoseService against the
-serving golden.  Every test here is
+serving golden; then Detector(engine="gather") and the coarse engines
+against the cascade golden, and the grasp planner, the segmentation ops
+and the aux filters against the aux golden.  Every test here is
 marked requires_cuda and skips without a CUDA device; the file imports no
 JAX, so it runs on a machine with a card and no JAX:
 
@@ -751,3 +753,109 @@ def test_trainer_on_the_card_equals_cpu(cuda, tmp_path, use_depth):
         np.testing.assert_array_equal(getattr(pm, k), getattr(cm, k), err_msg=k)
     np.testing.assert_allclose(pm.D, cm.D, rtol=0, atol=1e-6)
     assert pg == cg
+
+
+AUX_GOLDEN = "tests/data/torch_aux_golden.npz"
+
+
+@pytest.mark.requires_cuda
+def test_gather_engine_on_the_card_equals_golden(cuda):
+    """Detector(engine="gather") over the full bank on the card: frames 0
+    and 3's Matches equal the golden's (the reference's gather engine), and
+    on frame 0's level-1 responses the gather scan, the convolution and
+    the GEMM give equal scores; select_candidates_approx equals
+    select_candidates."""
+    bank = TemplateBank.read_templates_yaml(BANK)
+    dets = {e: Detector(bank.params, device=cuda, engine=e) for e in ("gather", "auto")}
+    for d in dets.values():
+        d.attach_bank(bank)
+    with np.load(CASCADE_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    cid, thr = bank.class_id, float(g["threshold"])
+    for f in (0, 3):
+        for d in dets.values():
+            m = d.match_raw(g["rgb"][f], thr, depth_mm=g["depth_mm"][f])[cid]
+            for name, x in m._asdict().items():
+                np.testing.assert_array_equal(x.cpu().numpy(), g["m_" + name][f], err_msg=name)
+    T1, Kc = bank.params.t_pyramid[1], bank.max_cell_extent(1)
+    f1 = bank.merged_features(1).to(cuda)
+    pyr = TM.preprocess_frame(torch.from_numpy(g["rgb"][0]).to(cuda),
+                              torch.from_numpy(g["depth_mm"][0]).to(cuda), use_depth=True)
+    R1 = torch.cat([pyr.grad_r1, pyr.norm_r1])
+    raw = TM.coarse_scores(R1, f1, T1, Kc)
+    assert torch.equal(TM.coarse_scores_conv(R1, bank.dense_weights(1).to(cuda), T1), raw)
+    assert torch.equal(TM.coarse_scores_gemm(R1, dets["auto"]._gemm_weight(cid), T1, Kc), raw)
+    vpos = TM.position_validity(f1.size, T1, *raw.shape[1:])
+    a = TM.select_candidates_approx(raw, f1.count, vpos, thr - 5.0, 512)
+    b = TM.select_candidates(raw, f1.count, vpos, thr - 5.0, 512)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["view00", "view45", "roi"])
+def test_grasp_segmentation_on_the_card(cuda, name):
+    """The grasp planner and the segmentation ops on the card against the
+    aux golden: the region and euclidean masks equal; the pose within 1e-3
+    degrees and 1e-6 m, the smoothed points within 1e-6 m and the normals
+    of the golden's smoothed points within 1e-5 (chip_smoke's GRASP_TOL)."""
+    from linemod_pose_estimation_tpu_torch.models.grasp import grasping_pose_region_growing
+    from linemod_pose_estimation_tpu_torch.ops import segmentation as SG
+    from linemod_pose_estimation_tpu_torch.utils.geometry import rotation_geodesic_deg
+
+    with np.load(AUX_GOLDEN) as z:
+        a = {k: z[k] for k in z.files}
+    if name == "roi":
+        p, v = a["roi_pts"], a["roi_valid"]
+    else:
+        with np.load(f"data/sweep_{name}_clouds.npz") as z:
+            p, v = z["scene"], z["svalid"]
+    p, v = torch.from_numpy(p).to(cuda), torch.from_numpy(v).to(cuda)
+    pose, region = grasping_pose_region_growing(p, v)
+    assert np.array_equal(region.cpu().numpy(), a[f"{name}_region"])
+    assert np.array_equal(SG.euclidean_cluster_largest(p, v, 0.005).cpu().numpy(),
+                          a[f"{name}_euclid"])
+    want = torch.from_numpy(a[f"{name}_pose"]).double()
+    got = pose.cpu().double()
+    assert float(rotation_geodesic_deg(got[:3, :3], want[:3, :3])) <= 1e-3
+    assert float((got[:3, 3] - want[:3, 3]).norm()) <= 1e-6
+    assert (a[f"{name}_support"][v.cpu().numpy()] >= 3).all()
+    np.testing.assert_allclose(SG.mls_smooth(p, v).cpu().numpy(), a[f"{name}_mls"], atol=1e-6)
+    n, _ = SG.estimate_normals(torch.from_numpy(a[f"{name}_mls"]).to(cuda), v, k=50)
+    np.testing.assert_allclose(n.cpu().numpy(), a[f"{name}_normals"], atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+def test_filters_on_the_card(cuda):
+    """The aux filters on the card against the aux golden: HSV bit for bit
+    on the golden frames and the seeded image, every gate, rect and keep
+    mask equal."""
+    import hashlib
+
+    from linemod_pose_estimation_tpu_torch.ops import filters as FL
+
+    with np.load(AUX_GOLDEN) as z:
+        a = {k: z[k] for k in z.files}
+    with np.load(CASCADE_GOLDEN) as z:
+        rgb = z["rgb"]
+    noise = np.random.default_rng(13).integers(0, 256, (480, 640, 3)).astype(np.uint8)
+    imgs = [torch.from_numpy(x).to(cuda) for x in list(rgb) + [noise]]
+    for f, img in enumerate(imgs):
+        h = FL.rgb_to_hsv_u8(img).cpu().numpy()
+        want = a["hsv_sha256"][f] if f < 4 else a["hsv_noise_sha256"]
+        assert hashlib.sha256(h.tobytes()).digest() == want.tobytes(), f
+    ranges = (((0.0, 180.0), (0.0, 255.0), (0.0, 255.0)),
+              ((0.0, 30.0), (50.0, 255.0), (50.0, 255.0)),
+              ((90.0, 150.0), (0.0, 255.0), (0.0, 255.0)),
+              ((0.0, 180.0), (0.0, 20.0), (0.0, 222.0)))
+    gate = [[bool(FL.hsv_color_filter(imgs[f], torch.from_numpy(r).to(cuda), *rg))
+             for rg in ranges] for f, r in zip(a["gate_frame"], a["gate_rects"])]
+    np.testing.assert_array_equal(gate, a["gate"])
+    green = imgs[4][..., 1].float()
+    got = [FL.absolute_rectangle(green, torch.from_numpy(r).to(cuda), 250.0).tolist()
+           for r in a["gate_rects"][-64:]]
+    np.testing.assert_array_equal(got, a["absrect_noise"])
+    on = lambda x: torch.from_numpy(x).to(cuda)
+    for i, s in enumerate((1, 3)):
+        keep = FL.nms_distance(on(a["nms_cells"]), on(a["nms_scores"]), on(a["nms_valid"]), s)
+        assert keep.device.type == "cuda"
+        np.testing.assert_array_equal(keep.cpu().numpy(), a["nms_noise_keep"][i])
