@@ -178,6 +178,23 @@ from csrc/.  Phases, one JSON line each:
       neighbours counted, ms per call; then rgb_to_hsv_u8 (bitwise, by
       SHA-256), hsv_color_filter, absolute_rectangle and nms_distance on
       the golden frames, their detections and seeded inputs, equal.
+  14. the multi-device layer (parallel/), in processes of its own
+      (parallel.mesh.spawn): two NCCL ranks on the one GPU, which NCCL
+      refuses ("Duplicate GPU detected"; what it says is printed); then 4
+      gloo ranks on cuda:0: the data=2 x bank=2 detect step (pooled with
+      the group tier, positions), the row-sharded matcher (2 stripes of
+      frame 0) and the 4-rank ring step on the cascade frames over the
+      2652-template bank, every Matches field and metric equal to
+      tests/data/torch_sharded_golden.npz and kernel path equal to plain
+      path; the B=32 pooled step over the tiled bank on phase 8's batch
+      (16 frames and 5312 templates a rank): kernel path equal to plain
+      path on every rank, the best match per frame and the valid sets
+      (where neither side filled top_k) equal to the single-device
+      BatchedMatcher's, the group pool run, K1/K2/K3 launches per rank,
+      PooledStats, prune_fallback_shards, the bytes each collective moves,
+      the step's ms per rank by CUDA events (four ranks sharing one card);
+      then the same step on one NCCL rank (a 1x1 mesh) against the gloo
+      run and the single-device matcher, and its ms beside the matcher's.
 
 Then a kernels summary line (per kernel: launches on its path, the
 summed time, plain time and bound of those launches at their shapes,
@@ -192,9 +209,10 @@ card it exits 2 before doing anything.
     python3 chip_smoke.py --only serving
     python3 chip_smoke.py --only trainer
     python3 chip_smoke.py --only aux
+    python3 chip_smoke.py --only parallel
 
-build the kernels and run phase 10, 11, 12 or 13 alone (a quick check on a
-card); they print no summary and no last line.
+build the kernels and run phase 10, 11, 12, 13 or 14 alone (a quick check
+on a card); they print no summary and no last line.
 """
 
 from __future__ import annotations
@@ -226,6 +244,9 @@ SERVING_GOLDEN = os.path.join(REPO, "tests", "data", "torch_serving_golden.npz")
 STREAM_TOOL = os.path.join(REPO, "tools", "bench_streaming_torch.py")
 TRAINER_GOLDEN = os.path.join(REPO, "tests", "data", "torch_trainer_golden.npz")
 AUX_GOLDEN = os.path.join(REPO, "tests", "data", "torch_aux_golden.npz")
+SHARDED_GOLDEN = os.path.join(REPO, "tests", "data", "torch_sharded_golden.npz")
+# Phase 14's spawned ranks: start-up, the bank shards, every run of a rank.
+PARALLEL_TIMEOUT_S = 420.0
 # Views of phase 12's timed RGB-D training: the committed banks' count.
 TRAIN_VIEWS = 2652
 # Metres between the trainer's D and the reference's: D reads the render's
@@ -1938,6 +1959,392 @@ def aux_phase(dev: torch.device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the multi-device layer (parallel/), in processes of its own
+# ---------------------------------------------------------------------------
+
+
+def _features(z, prefix: str):
+    from linemod_pose_estimation_tpu_torch.ops.match import LevelFeatures
+
+    return LevelFeatures(*(torch.from_numpy(z[prefix + f]) for f in LevelFeatures._fields))
+
+
+def _host(rec) -> dict:
+    return {k: v.cpu().numpy() for k, v in rec._asdict().items()}
+
+
+def _counted(fn, *args):
+    """fn(*args) with the launch counts set to 0 just before it and read
+    just after (the launches of that call alone)."""
+    from linemod_pose_estimation_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, dict(_build.launch_counts)
+
+
+def _event_ms(fn) -> float:
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def _step_result(step, out, launches) -> dict:
+    m, met = out
+    res = dict(m=_host(m), met={k: v.item() for k, v in met.items()}, launches=launches,
+               collectives=dict(step.last_collectives))
+    if step.last_pool is not None:
+        res["pool"] = {k: v.tolist() for k, v in step.last_pool._asdict().items()}
+        res["n_valid"] = step.last_n_valid.cpu().numpy()
+    return res
+
+
+def _dump(out_dir: str, name: str, rank: int, obj) -> None:
+    import pickle
+
+    with open(os.path.join(out_dir, f"{name}_{rank}.pkl"), "wb") as f:
+        pickle.dump(obj, f)
+
+
+def _parallel_gloo_rank(rank: int, world: int, inputs: str, out_dir: str) -> None:
+    """Phase 14 (a) in one of 4 gloo ranks, every rank on cuda:0: the golden
+    runs (2x2 pooled and positions, the row-sharded matcher, the 4-rank
+    ring), each kernel path and plain path, then the B=32 pooled step over
+    the tiled bank: kernel path timed, plain path, launches."""
+    import torch.distributed as dist
+
+    from linemod_pose_estimation_tpu_torch.ops import match as M
+    from linemod_pose_estimation_tpu_torch.parallel import mesh as PM
+    from linemod_pose_estimation_tpu_torch.parallel import sharded_match as SM
+    from linemod_pose_estimation_tpu_torch.parallel.ingest import put_global_batch
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    z = np.load(inputs)
+    p = json.loads(str(z["params"]))
+    T0, T1, Kc1, E0, C = p["T0"], p["T1"], p["Kc1"], p["E0"], p["C"]
+    kw = dict(T1=T1, Kc1=Kc1, top_k=p["top_k"], threshold=THRESHOLD, T0=T0, E0=E0,
+              use_depth=True)
+    mesh = PM.make_mesh(2, 2, device_type="cuda")
+    d, b = mesh.get_local_rank("data"), mesh.get_local_rank("bank")
+    res = {}
+
+    g1, g0 = _features(z, "g1_"), _features(z, "g0_")
+    gbank = SM.make_sharded_bank(mesh, g1, g0, C, T1, Kc1, fine_g=4, group_bound=16,
+                                 device=dev)
+    rg, dp = put_global_batch(mesh, z["gold_rgb"][2 * d:2 * d + 2],
+                              z["gold_depth"][2 * d:2 * d + 2])
+    modes = {"pool": dict(prune_mode="pooled", **p["gold_pool"]),
+             "pos": dict(prune_mode="positions")}
+    for key, mode in modes.items():
+        for plain in (False, True):
+            step = SM.make_sharded_detect_step(mesh, prune=True, plain=plain, **mode, **kw)
+            out, launches = _counted(step, rg, dp, gbank)
+            res[key + "_plain" * plain] = _step_result(step, out, launches)
+    del gbank
+
+    R0, R1 = M.preprocess_frames_batched(
+        torch.from_numpy(z["gold_rgb"][:1]).to(dev),
+        torch.from_numpy(z["gold_depth"][:1]).to(dev), T0=T0, T1=T1, use_depth=True)
+    h0, h1 = R0.shape[2] // 2, R1.shape[2] // 2
+    R0s = R0[0, :, b * h0:(b + 1) * h0].contiguous()
+    R1s = R1[0, :, b * h1:(b + 1) * h1].contiguous()
+    f1, f0 = g1.to(dev), g0.to(dev)
+    W1 = M.MatmulWeight.from_kn(M.build_gemm_weights(f1, C, T1, Kc1))
+    for plain in (False, True):
+        row = SM.make_row_sharded_matcher(mesh, "bank", T1, Kc1, p["top_k"], THRESHOLD,
+                                          T0=T0, E0=E0, plain=plain)
+        m, launches = _counted(row, R1s, R0s, W1, f1, f0)
+        res["row" + "_plain" * plain] = dict(m=_host(m), launches=launches,
+                                             collectives=dict(row.last_collectives))
+    del W1, f1, f0, R0, R1
+
+    rmesh = PM.make_mesh(1, 4, device_type="cuda")
+    r = rmesh.get_local_rank("bank")
+    rbank = SM.make_ring_bank(rmesh, "bank", g1, g0, C, T1, Kc1, device=dev)
+    for plain in (False, True):
+        ring = SM.make_ring_detect_step(rmesh, "bank", plain=plain, **kw)
+        m, launches = _counted(ring, z["gold_rgb"][r:r + 1], z["gold_depth"][r:r + 1], rbank)
+        res["ring" + "_plain" * plain] = dict(m=_host(m), launches=launches,
+                                              collectives=dict(ring.last_collectives))
+    del rbank
+
+    Bl = p["B"] // 2
+    tbank = SM.make_sharded_bank(mesh, _features(z, "t1_"), _features(z, "t0_"), C, T1,
+                                 Kc1, fine_g=4, group_bound=16, device=dev)
+    rg, dp = put_global_batch(mesh, z["b_rgb"][Bl * d:Bl * (d + 1)],
+                              z["b_depth"][Bl * d:Bl * (d + 1)])
+    skw = dict(prune=True, prune_mode="pooled", pool_coarse=56 * Bl, pool_fine=36 * Bl,
+               sel_row_cap=128, **kw)
+    step = SM.make_sharded_detect_step(mesh, **skw)
+    step(rg, dp, tbank)  # warm-up (cuBLASLt heuristics, caches)
+    box = {}
+    grouped = calls_of([(M, "pool_plan_grouped")],
+                       lambda: box.update(run=_counted(step, rg, dp, tbank)))
+    res["b32"] = _step_result(step, *box["run"])
+    res["b32"]["grouped_calls"] = len(grouped.get("pool_plan_grouped", []))
+    ms = []
+    for _ in range(3):
+        dist.barrier()
+        ms.append(_event_ms(lambda: step(rg, dp, tbank)))
+    res["b32"]["ms"] = ms
+    plain = SM.make_sharded_detect_step(mesh, plain=True, **skw)
+    out, launches = _counted(plain, rg, dp, tbank)
+    res["b32_plain"] = _step_result(plain, out, launches)
+    _dump(out_dir, "gloo", rank, res)
+
+
+def _parallel_nccl_rank(rank: int, world: int, inputs: str, out_dir: str) -> None:
+    """Phase 14 (b): the B=32 pooled step on a 1x1 mesh over NCCL."""
+    import torch.distributed as dist
+
+    from linemod_pose_estimation_tpu_torch.parallel import mesh as PM
+    from linemod_pose_estimation_tpu_torch.parallel import sharded_match as SM
+    from linemod_pose_estimation_tpu_torch.parallel.ingest import put_global_batch
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    z = np.load(inputs)
+    p = json.loads(str(z["params"]))
+    mesh = PM.make_mesh(1, 1, device_type="cuda")
+    tbank = SM.make_sharded_bank(mesh, _features(z, "t1_"), _features(z, "t0_"), p["C"],
+                                 p["T1"], p["Kc1"], fine_g=4, group_bound=16, device=dev)
+    rg, dp = put_global_batch(mesh, z["b_rgb"], z["b_depth"])
+    B = p["B"]
+    step = SM.make_sharded_detect_step(
+        mesh, p["T1"], p["Kc1"], p["top_k"], THRESHOLD, T0=p["T0"], E0=p["E0"],
+        use_depth=True, prune=True, prune_mode="pooled", pool_coarse=56 * B,
+        pool_fine=36 * B, sel_row_cap=128)
+    step(rg, dp, tbank)  # warm-up
+    res = _step_result(step, *_counted(step, rg, dp, tbank))
+    res["ms"] = [_event_ms(lambda: step(rg, dp, tbank)) for _ in range(3)]
+    res["backend"] = str(dist.get_backend())
+    _dump(out_dir, "nccl", rank, res)
+
+
+def _nccl_duplicate_rank(rank: int, world: int, out_dir: str) -> None:
+    """Two NCCL ranks on cuda:0: what NCCL says to a second rank on one
+    GPU."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    t = torch.ones(1, device="cuda")
+    try:
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        said = None
+    except dist.DistBackendError as e:
+        said = str(e)
+    _dump(out_dir, "nccl_duplicate", rank, said)
+
+
+def _load_ranks(out_dir: str, name: str, world: int) -> list:
+    import pickle
+
+    out = []
+    for r in range(world):
+        path = os.path.join(out_dir, f"{name}_{r}.pkl")
+        require(os.path.exists(path), f"phase 14: rank {r} wrote no {name} result")
+        with open(path, "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _valid_multiset(m: dict, b: int) -> collections.Counter:
+    return collections.Counter(
+        (int(t), int(x), int(y), float(s)) for t, x, y, s, v in zip(
+            m["template_id"][b], m["x"][b], m["y"][b], m["similarity"][b], m["valid"][b]) if v)
+
+
+def _same(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def parallel_phase(dev: torch.device) -> dict:
+    """Phase 14: the multi-device layer in processes of its own
+    (parallel.mesh.spawn).  (a) 4 gloo ranks on cuda:0 (NCCL refuses two
+    ranks on one GPU; the phase shows what it says): the 2x2 detect step
+    (pooled with the group tier, positions), the row-sharded matcher and
+    the 4-rank ring against tests/data/torch_sharded_golden.npz, each also
+    kernel path against plain path; the B=32 pooled step over the tiled
+    bank on phase 8's batch, kernel against plain on every rank, best match
+    and valid sets against the single-device BatchedMatcher.  (b) the same
+    B=32 step on one NCCL rank.  Returns the launches of one (a) B=32 step per rank and
+    of one ring step."""
+    import shutil
+
+    from linemod_pose_estimation_tpu_torch.models.detector import Detector
+    from linemod_pose_estimation_tpu_torch.models.serving import BatchedMatcher, slice_settings
+    from linemod_pose_estimation_tpu_torch.parallel import mesh as PM
+    from linemod_pose_estimation_tpu_torch.utils import scenes as S
+
+    work = os.path.join(REPO, "build", "phase14")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with np.load(SHARDED_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    with np.load(CASCADE_GOLDEN) as z:
+        g_rgb, g_dep = z["rgb"], z["depth_mm"]
+    det = Detector.read(BANK, device=dev)
+    cid = det.class_ids[0]
+    bank = det.bank(cid)
+    T0, T1 = det.params.t_pyramid
+    feats = lambda bk, lv: {f: a.numpy() for f, a in bk.merged_features(lv)._asdict().items()}
+    arrays = {**{"g1_" + k: v for k, v in feats(bank, 1).items()},
+              **{"g0_" + k: v for k, v in feats(bank, 0).items()}}
+    params = dict(T0=T0, T1=T1, Kc1=bank.max_cell_extent(1), E0=bank.extent(0),
+                  C=8 * bank.num_modalities, top_k=int(gold["top_k"]), B=B_MAIN,
+                  gold_pool={k: int(gold[k]) for k in ("pool_coarse", "pool_fine",
+                                                       "sel_row_cap")})
+    tiled = bank.tile(-(-10240 // bank.num_templates), TILE_TO)
+    require((tiled.max_cell_extent(1), tiled.extent(0)) == (params["Kc1"], params["E0"]),
+            "the tiled bank's extents differ from the bank's")
+    arrays.update({"t1_" + k: v for k, v in feats(tiled, 1).items()})
+    arrays.update({"t0_" + k: v for k, v in feats(tiled, 0).items()})
+    # Phase 8's batch: phase 2b's first 28 scenes, whose matches all stay
+    # below 91, and the 4 cascade frames, which reach it.
+    rgbs, deps, _ = S.bin_picking_batch(B_MAIN, seed=3)
+    rgbs = np.concatenate([rgbs[:B_MAIN - len(g_rgb)], g_rgb])
+    deps = np.concatenate([deps[:B_MAIN - len(g_dep)], g_dep])
+    inputs = os.path.join(work, "inputs.npz")
+    np.savez(inputs, params=json.dumps(params), gold_rgb=g_rgb, gold_depth=g_dep,
+             b_rgb=rgbs, b_depth=deps, **arrays)
+
+    det.attach_bank(tiled)
+    single = BatchedMatcher(det, cid, THRESHOLD, B_MAIN, device=dev, **slice_settings(B_MAIN))
+    trgb, tdep = torch.from_numpy(rgbs).to(dev), torch.from_numpy(deps).to(dev)
+    single.match_batch(trgb, tdep)  # warm-up
+    ref = _host(single.match_batch(trgb, tdep))
+    ref_nv = single.last_n_valid.cpu().numpy()
+    single_ms = [_event_ms(lambda: single.match_batch(trgb, tdep)) for _ in range(3)]
+    del single, det, trgb, tdep
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    PM.spawn(_nccl_duplicate_rank, 2, "nccl", os.path.join(work, "rdv_dup"),
+             args=(work,), timeout_s=90.0)
+    said = _load_ranks(work, "nccl_duplicate", 2)
+    require(all(s is not None and "Duplicate GPU detected" in s for s in said),
+            f"phase 14: two NCCL ranks on one GPU did not fail as expected: {said}")
+    dup_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    PM.spawn(_parallel_gloo_rank, 4, "gloo", os.path.join(work, "rdv_gloo"),
+             args=(inputs, work), timeout_s=PARALLEL_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    ranks = _load_ranks(work, "gloo", 4)
+    for r, res in enumerate(ranks):
+        d = r // 2
+        for key in ("pool", "pos"):
+            for name, a in res[key]["m"].items():
+                require(np.array_equal(a, gold[f"{key}_m_{name}"][2 * d:2 * d + 2]),
+                        f"phase 14 rank {r}: the 2x2 {key} step's {name} differs from "
+                        "the golden")
+            for k, v in res[key]["met"].items():
+                require(v == gold[f"{key}_{k}"].item(),
+                        f"phase 14 rank {r}: {key} metric {k} differs from the golden")
+        for name, a in res["row"]["m"].items():
+            require(np.array_equal(a, gold[f"row_m_{name}"]),
+                    f"phase 14 rank {r}: the row-sharded {name} differs from the golden")
+        for name, a in res["ring"]["m"].items():
+            require(np.array_equal(a[0], gold[f"ring_m_{name}"][r]),
+                    f"phase 14 rank {r}: the ring step's {name} differs from the golden")
+        for key in ("pool", "pos", "row", "ring", "b32"):
+            require(_same(res[key]["m"], res[key + "_plain"]["m"]),
+                    f"phase 14 rank {r}: {key} kernel path != plain path")
+            require(all(v == 0 for v in res[key + "_plain"]["launches"].values()),
+                    f"phase 14 rank {r}: {key}'s plain path launched a kernel")
+        require(res["b32"]["met"] == res["b32_plain"]["met"],
+                f"phase 14 rank {r}: B=32 metrics kernel != plain")
+        for key in ("pool", "pos", "ring", "b32"):
+            for k in ("quantize_cg", "spread_response", "walk_scores"):
+                require(res[key]["launches"][k] > 0,
+                        f"phase 14 rank {r}: {key} launched no {k}")
+        require(res["row"]["launches"]["walk_scores"] == 1,
+                f"phase 14 rank {r}: the row-sharded matcher did not walk once")
+        require(res["ring"]["launches"]["walk_scores"] == 4,
+                f"phase 14 rank {r}: the ring step did not walk once a shard")
+        require(res["b32"]["grouped_calls"] == 1,
+                f"phase 14 rank {r}: the B=32 step did not run the group pool")
+        require(not res["pool"]["pool"]["fallback"] and not res["b32"]["pool"]["fallback"],
+                f"phase 14 rank {r}: a pooled step fell back")
+        require(_same(res["b32"]["m"], ranks[r ^ 1]["b32"]["m"]),
+                f"phase 14: ranks {r} and {r ^ 1} of one data row hold other Matches")
+
+    B, K = B_MAIN, int(gold["top_k"])
+    Bl = B // 2
+    sharded = {k: np.concatenate([ranks[0]["b32"]["m"][k], ranks[2]["b32"]["m"][k]])
+               for k in ref}
+
+    # A frame's coarse candidates fill top_k on a side (n_valid == top_k):
+    # there the single device walks its global top_k, each shard its own,
+    # and the sharded step may walk (and keep) valid matches the single
+    # device never reached, so the valid sets are compared elsewhere only.
+    shard_nv = np.stack([np.concatenate([ranks[0 + c]["b32"]["n_valid"],
+                                         ranks[2 + c]["b32"]["n_valid"]]) for c in (0, 1)])
+    filled = (ref_nv == K) | (shard_nv == K).any(axis=0)
+
+    def compare(a: dict, b: dict, what: str, all_frames: bool) -> int:
+        """Best similarity per frame equal; valid multisets equal on every
+        frame (all_frames) or where no side filled top_k.  Returns the
+        frames whose sets were compared."""
+        n = 0
+        for f in range(B):
+            best = lambda m: float(np.where(m["valid"][f], m["similarity"][f], -1.0).max())
+            require(best(a) == best(b), f"phase 14: frame {f}'s best match, {what}")
+            if all_frames or not filled[f]:
+                require(_valid_multiset(a, f) == _valid_multiset(b, f),
+                        f"phase 14: frame {f}'s valid matches, {what}")
+                n += 1
+        return n
+
+    n_single = compare(sharded, ref, "2x2 sharded vs single-device", False)
+    require(int(ref["valid"].sum()) > 0, "phase 14: the B=32 batch has no valid match")
+
+    t0 = time.perf_counter()
+    PM.spawn(_parallel_nccl_rank, 1, "nccl", os.path.join(work, "rdv_nccl"),
+             args=(inputs, work), timeout_s=PARALLEL_TIMEOUT_S)
+    nccl_s = time.perf_counter() - t0
+    (one,) = _load_ranks(work, "nccl", 1)
+    require(one["backend"] == "nccl", "phase 14 (b) did not run over NCCL")
+    compare(one["m"], ref, "1x1 NCCL vs single-device", True)
+    n_nccl = compare(one["m"], sharded, "1x1 NCCL vs 2x2 gloo", False)
+    for k in ("quantize_cg", "spread_response", "walk_scores"):
+        require(one["launches"][k] > 0, f"phase 14 (b) launched no {k}")
+
+    per_rank = [res["b32"]["launches"] for res in ranks]
+    emit("parallel", card_note="(a) is four ranks sharing one card, not a scale-out figure",
+         nccl_duplicate=said[0], nccl_duplicate_s=dup_s,
+         golden_equal=["pool", "pos", "row", "ring"], kernel_vs_plain_equal=True,
+         b32=dict(frames=B, frames_per_rank=Bl, templates=TILE_TO,
+                  templates_per_shard=TILE_TO // 2, launches_per_rank=per_rank,
+                  prune_fallback_shards=ranks[0]["b32"]["met"]["prune_fallback_shards"],
+                  num_matches=ranks[0]["b32"]["met"]["num_matches"],
+                  pooled_stats=[res["b32"]["pool"] for res in ranks],
+                  group_pool_calls=[res["b32"]["grouped_calls"] for res in ranks],
+                  step_ms_per_rank=[res["b32"]["ms"] for res in ranks],
+                  collective_bytes_per_rank=[res["b32"]["collectives"] for res in ranks],
+                  frames_vs_single_compared=n_single,
+                  frames_filled=np.flatnonzero(filled).tolist(),
+                  valid_sharded=int(sharded["valid"].sum()),
+                  valid_single=int(ref["valid"].sum())),
+         ring=dict(launches_per_rank=[res["ring"]["launches"] for res in ranks],
+                   collective_bytes_per_rank=[res["ring"]["collectives"] for res in ranks]),
+         row=dict(collective_bytes_per_rank=[res["row"]["collectives"] for res in ranks]),
+         golden_collective_bytes=[res["pool"]["collectives"] for res in ranks],
+         nccl_1x1=dict(step_ms=one["ms"], launches=one["launches"], pooled_stats=one["pool"],
+                       collective_bytes=one["collectives"],
+                       frames_vs_gloo_compared=n_nccl),
+         single_device_ms=single_ms, spawn_s=dict(gloo=gloo_s, nccl=nccl_s))
+    return dict(per_rank=per_rank[0], ring=ranks[0]["ring"]["launches"])
+
+
 def params_match(path: str, golden: str, what: str) -> float:
     """A renderer_params.yml against the reference's: R, T, K, Ori_dist,
     Rect and the globals equal, D within D_TOL; returns D's largest
@@ -1994,6 +2401,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "aux"]:
         aux_phase(dev)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--only", "parallel"]:
+        parallel_phase(dev)
         print(card, flush=True)
         return 0
     if sys.argv[1:]:
@@ -2166,6 +2577,7 @@ def main() -> int:
     launches11, launches_step = serving_phase(dev, perf)
     launches12 = trainer_phase(dev, perf)
     launches13 = aux_phase(dev)
+    launches14 = parallel_phase(dev)
 
     # -- summary -------------------------------------------------------------
     # launches: of one B=32 pooled batch (phase 2b) for K1-K3, of one detect
@@ -2206,6 +2618,8 @@ def main() -> int:
             launches_per_streaming_step=launches_step.get(key.removesuffix("_b1")),
             launches_per_trainer_chunk=launches12.get(key.removesuffix("_b1")),
             launches_per_gather_match=launches13.get(key.removesuffix("_b1")),
+            launches_per_sharded_step_rank=launches14["per_rank"].get(key),
+            launches_per_ring_step_rank=launches14["ring"].get(key),
             shapes=shapes))
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

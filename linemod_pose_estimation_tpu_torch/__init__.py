@@ -17,7 +17,11 @@ package is held against; the layout mirrors it module for module:
                "conv" or "auto"), the batched serving matcher and
                PipelinedRunner, the renderer, the detection cascade and
                DetectionPipeline, the offline trainer, the grasp planner.
-- ``parallel`` — host-side multi-camera ingest (FrameBatcher, PacedSource).
+- ``parallel`` — the device mesh and rank launcher on torch.distributed
+               (make_mesh, spawn), the sharded steps (the bank-sharded
+               detect step and coarse matcher, the row-sharded and ring
+               matchers), put_global_batch, and host-side multi-camera
+               ingest (FrameBatcher, PacedSource).
 - ``api``    — the pose service, the application nodes and replay
                sources, the robot-frame transform chain.
 - ``eval``   — the accuracy harness (match-position error against known

@@ -166,6 +166,45 @@ def local_descriptor_pose_from_numpy(pose, votes, n_correspondences, valid,
                                _t(valid, torch.bool, device))
 
 
+def sharded_bank_from_numpy(W1_rows, W_cell, W_fine, feats1, feats0, rank: int,
+                            n_shards: int, C: int, fine_g: int | None,
+                            device=DEFAULT_DEVICE):
+    """The reference's ShardedBank fields — W1_rows (N, K), W_cell (N,
+    bins), W_fine (N, fine bins; zero-width with the fine stage off) and
+    both levels' LevelFeatures fields, N padded to a multiple of
+    `n_shards` — -> this rank's shard as the port's ShardedBank (rows
+    [rank * n_local, (rank + 1) * n_local); no group tier, which the
+    reference's bank lacks)."""
+    from .parallel.sharded_match import ShardedBank
+
+    n_local = np.asarray(W1_rows).shape[0] // n_shards
+    sl = slice(rank * n_local, (rank + 1) * n_local)
+    i8 = lambda a: _t(np.asarray(a)[sl], torch.int8, device)
+    rows = lambda f: level_features_from_numpy(*(np.asarray(a)[sl] for a in f), device=device)
+    W_fine = np.asarray(W_fine)
+    weights = BankWeights(
+        W_gemm=MatmulWeight.from_nk(i8(W1_rows)), W_cell=MatmulWeight.from_nk(i8(W_cell)),
+        W_fine=MatmulWeight.from_nk(i8(W_fine)) if W_fine.shape[1] else None,
+        W_group=None, group_counts=None)
+    return ShardedBank(weights, rows(feats1), rows(feats0), C,
+                       fine_g if W_fine.shape[1] else None, None)
+
+
+def ring_bank_from_numpy(W1, feats1, feats0, rank: int, n_shards: int,
+                         device=DEFAULT_DEVICE):
+    """The reference's RingBank fields — W1 (K, N), both levels'
+    LevelFeatures fields, N padded to a multiple of `n_shards` — -> this
+    rank's starting shard as the port's RingBank."""
+    from .parallel.sharded_match import RingBank
+
+    W1 = np.asarray(W1)
+    n_local = W1.shape[1] // n_shards
+    sl = slice(rank * n_local, (rank + 1) * n_local)
+    rows = lambda f: level_features_from_numpy(*(np.asarray(a)[sl] for a in f), device=device)
+    return RingBank(MatmulWeight.from_kn(_t(W1[:, sl], torch.int8, device)), rows(feats1),
+                    rows(feats0))
+
+
 def record_to_numpy(record, prefix: str = "") -> dict[str, np.ndarray]:
     """A record of tensors (Matches, PrunePlan, FinePlan, PruneResult,
     PooledStats, ICPResult, LocalDescriptorPose, ...) -> {prefix + field: numpy array}: the form the golden

@@ -6,8 +6,8 @@ replay fixtures) round-robin into fixed-size batches; `PacedSource` is a
 camera with a fixed frame cadence and a ring-buffer backlog, so a
 streaming run measures latency under load rather than in lockstep.  The
 batches are pageable numpy arrays: the step that takes them copies them
-to the card.  The reference's `put_global_batch` needs a device mesh and
-belongs to the multi-device layer.
+to the card.  `put_global_batch` turns each rank's frames into its shard
+of the global batch over a device mesh (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import time
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
 
 class FrameBatcher:
@@ -103,3 +104,29 @@ class PacedSource:
         t_grab = self._next_due
         self._next_due += self.period
         return self.fn(), t_grab
+
+
+def put_global_batch(mesh, local_rgbs, local_depths=None):
+    """This rank's frames as its shard of the GLOBAL data-parallel batch:
+    the port of the reference's `make_array_from_process_local_data` seam.
+
+    Every rank calls this with its cameras' frames (equal batch sizes);
+    the result is a DTensor over `mesh` placed as `frame_sharding`, whose
+    global batch is the sum of the "data" rows' local batches.  The ranks
+    of one "data" row hold the row's first rank's frames (the "bank" dim
+    is replicated: DTensor.from_local(run_check=True) broadcasts them).
+    Returns (rgbs, depths or None), on the mesh's device type (a CUDA mesh:
+    the current device); the sharded steps take these or plain local
+    tensors."""
+    from torch.distributed.tensor import DTensor
+
+    from .mesh import frame_sharding
+
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+
+    def put(a):
+        t = torch.as_tensor(np.asarray(a)).to(device)
+        return DTensor.from_local(t, mesh, frame_sharding(mesh), run_check=True)
+
+    return put(local_rgbs), None if local_depths is None else put(local_depths)

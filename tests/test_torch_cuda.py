@@ -9,7 +9,9 @@ then the serving surface: K4 at template_refinement's launch against
 plain, PipelinedRunner against blocking calls, PoseService against the
 serving golden; then Detector(engine="gather") and the coarse engines
 against the cascade golden, and the grasp planner, the segmentation ops
-and the aux filters against the aux golden.  Every test here is
+and the aux filters against the aux golden; then the multi-device steps
+(parallel/sharded_match.py) in 4 gloo ranks on the card, kernel paths
+against plain paths.  Every test here is
 marked requires_cuda and skips without a CUDA device; the file imports no
 JAX, so it runs on a machine with a card and no JAX:
 
@@ -859,3 +861,89 @@ def test_filters_on_the_card(cuda):
         keep = FL.nms_distance(on(a["nms_cells"]), on(a["nms_scores"]), on(a["nms_valid"]), s)
         assert keep.device.type == "cuda"
         np.testing.assert_array_equal(keep.cpu().numpy(), a["nms_noise_keep"][i])
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(tmp_path_factory):
+    """The multi-device steps in 4 gloo ranks on cuda:0 (NCCL takes one
+    rank per GPU), each kernel path beside its plain path: the 2x2 detect
+    step in its four modes on the cascade frames over the RGB-D bank (the
+    pooled one with the group tier), the row-sharded matcher over 2
+    stripes of frame 0, the 4-rank ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    import pickle
+
+    import _torch_sharded_ranks as RK
+    from linemod_pose_estimation_tpu_torch.parallel import mesh as PM
+
+    det = Detector.read(BANK, device="cpu")
+    bank = det.bank(det.class_ids[0])
+    T0, T1 = det.params.t_pyramid
+    Kc1, E0, C = bank.max_cell_extent(1), bank.extent(0), 8 * bank.num_modalities
+    f1 = tuple(a.numpy() for a in bank.merged_features(1))
+    f0 = tuple(a.numpy() for a in bank.merged_features(0))
+    with np.load(CASCADE_GOLDEN) as z:
+        rgbs, deps = z["rgb"], z["depth_mm"]
+    kw = dict(T1=T1, Kc1=Kc1, top_k=128, threshold=91.0, T0=T0, E0=E0)
+    modes = {"pooled": dict(prune=True, prune_mode="pooled", pool_coarse=112, pool_fine=72),
+             "positions": dict(prune=True, prune_mode="positions"),
+             "two_axis": dict(prune=True, prune_mode="two_axis"),
+             "exhaustive": dict(prune=False)}
+    R0, R1 = TM.preprocess_frames_batched(torch.from_numpy(rgbs[:1]),
+                                          torch.from_numpy(deps[:1]), use_depth=True)
+    cases = []
+    for plain in (False, True):
+        tag = "_plain" * plain
+        for mode, mkw in modes.items():
+            cases.append((f"step_{mode}{tag}", "step", (2, 2), dict(
+                rgbs=rgbs, depths=deps, feats1=f1, feats0=f0, put=True, device="cuda",
+                bank_kw=dict(C=C, T1=T1, Kc1=Kc1, fine_g=4, group_bound=16),
+                step_kw=dict(use_depth=True, plain=plain, **mkw, **kw))))
+        cases.append((f"row{tag}", "row", (2, 2), dict(
+            axis="bank", R1=R1[0].numpy(), R0=R0[0].numpy(), feats1=f1, feats0=f0, C=C,
+            T1=T1, Kc1=Kc1, device="cuda",
+            mkw=dict(top_k=128, threshold=91.0, T0=T0, E0=E0, plain=plain))))
+        cases.append((f"ring{tag}", "ring", (1, 4), dict(
+            axis="bank", rgbs=rgbs, depths=deps, feats1=f1, feats0=f0, C=C, T1=T1,
+            Kc1=Kc1, device="cuda", skw=dict(top_k=128, threshold=91.0, T0=T0, E0=E0,
+                                             use_depth=True, plain=plain))))
+    d = tmp_path_factory.mktemp("sharded_cuda")
+    PM.spawn(RK.run_cases, 4, "gloo", str(d / "rendezvous"), args=(cases, str(d), "cuda"),
+             timeout_s=300.0)
+
+    def load(name):
+        out = []
+        for r in range(4):
+            with open(d / f"{name}_{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+    return load
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["pooled", "positions", "two_axis", "exhaustive"])
+def test_sharded_detect_step_kernels_equal_plain(sharded_runs, mode):
+    for r, (k, p) in enumerate(zip(sharded_runs(f"step_{mode}"),
+                                   sharded_runs(f"step_{mode}_plain"))):
+        for name in k["matches"]:
+            np.testing.assert_array_equal(k["matches"][name], p["matches"][name],
+                                          err_msg=f"rank {r} {name}")
+        assert k["metrics"] == p["metrics"]
+        assert int(k["metrics"]["num_matches"]) > 0
+        if mode == "pooled":
+            assert k["grouped_calls"] == 1 and not k["pool"]["fallback"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("step", ["row", "ring"])
+def test_row_and_ring_kernels_equal_plain(sharded_runs, step):
+    found = 0
+    for r, (k, p) in enumerate(zip(sharded_runs(step), sharded_runs(f"{step}_plain"))):
+        km = k["matches"] if step == "ring" else k
+        pm = p["matches"] if step == "ring" else p
+        for name in km:
+            np.testing.assert_array_equal(km[name], pm[name], err_msg=f"rank {r} {name}")
+        found += int(km["valid"].sum())
+    assert found > 0  # the ring's rank 3 holds the background frame: none there
