@@ -1,0 +1,9 @@
+"""Kernel K2 (`csrc/spread_response.cu`) in the batch: its roofline's least
+time over its traced device time, in percent."""
+
+from benchmark.harness.readers import roofline_pct
+from benchmark.harness.spans import K2
+
+
+def read(ctx):
+    return roofline_pct(ctx, K2)
