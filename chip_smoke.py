@@ -481,11 +481,11 @@ def options_phase(dev: torch.device, perf: dict) -> dict:
     from linemod_pose_estimation_tpu_torch.models.detector import Detector
     from linemod_pose_estimation_tpu_torch.models.pipeline import DetectionPipeline
     from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
-    from linemod_pose_estimation_tpu_torch.ops import _build
     from linemod_pose_estimation_tpu_torch.ops import local_descriptor as TL
     from linemod_pose_estimation_tpu_torch.ops import raster as RA
     from linemod_pose_estimation_tpu_torch.utils import pointcloud as TP
     from linemod_pose_estimation_tpu_torch.utils import scenes as S
+    from linemod_pose_estimation_tpu_torch.utils import tracing
 
     with np.load(CASCADE_GOLDEN) as z:
         cg = {k: z[k] for k in z.files}
@@ -511,9 +511,9 @@ def options_phase(dev: torch.device, perf: dict) -> dict:
 
     detect(base, 0)  # warm-up
     rows = {"default": dict(options={}, detect_ms_median_of_5=median_ms(base))}
-    _build.reset_launch_counts()
+    tracing.reset()
     detect(base, 0)
-    rows["default"]["launches_per_detect"] = dict(_build.launch_counts)
+    rows["default"]["launches_per_detect"] = tracing.launches()
     outside, pipes, launches_acc = [], {}, None
     for cfg, (options, frame_ids) in TC.GOLDEN_OPTION_SETS.items():
         require(tuple(og[cfg + "_frames"]) == tuple(frame_ids),
@@ -521,10 +521,10 @@ def options_phase(dev: torch.device, perf: dict) -> dict:
         pipe = pipes[cfg] = make(options)
         detect(pipe, 0)  # warm-up
         torch.cuda.synchronize()
-        _build.reset_launch_counts()
+        tracing.reset()
         results = [detect(pipe, f, return_stages=True) for f in frame_ids]
         torch.cuda.synchronize()
-        launches = dict(_build.launch_counts)
+        launches = tracing.launches()
         for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
             require(launches[k] > 0, f"kernel {k} was not launched by the {cfg} detect")
         frames = []
@@ -543,10 +543,10 @@ def options_phase(dev: torch.device, perf: dict) -> dict:
             outside += [(what, e) for e in errs if e[0] > tol[0] or e[1] > tol[1]]
             frames.append(dict(frame=f, detections=len(dets), lanes=int(st.poses.valid.numel()),
                                pose_vs_reference=[dict(deg=a, mm=b) for a, b in errs]))
-        _build.reset_launch_counts()
+        tracing.reset()
         icp = calls_of(spied, lambda: detect(pipe, 0), results=True)
         ld = icp.pop("get_pose_by_local_descriptor", [])
-        per_detect = dict(_build.launch_counts)
+        per_detect = tracing.launches()
         if cfg == "accuracy":
             launches_acc = per_detect
         rows[cfg] = dict(
@@ -627,7 +627,6 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
     from linemod_pose_estimation_tpu_torch.models.pipeline import DetectionPipeline
     from linemod_pose_estimation_tpu_torch.models.renderer import _pad_triangles
     from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
-    from linemod_pose_estimation_tpu_torch.ops import _build
     from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
     from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
     from linemod_pose_estimation_tpu_torch.ops import features as F
@@ -637,6 +636,7 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
     from linemod_pose_estimation_tpu_torch.utils import kernel_cases as KC
     from linemod_pose_estimation_tpu_torch.utils import pointcloud as TP
     from linemod_pose_estimation_tpu_torch.utils import scenes as S
+    from linemod_pose_estimation_tpu_torch.utils import tracing
 
     # -- phase 4: K4 vs plain at the cascade's shapes -------------------------
     meta, glob = TemplateBank.read_params_yaml(PARAMS)
@@ -709,11 +709,11 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
     pipe.detect(*frames[0][:2], threshold=thr, depth_mm=frames[0][2])  # warm-up
     torch.cuda.synchronize()
     setup6_s = time.perf_counter() - t0
-    _build.reset_launch_counts()
+    tracing.reset()
     results = [pipe.detect(r, c, threshold=thr, depth_mm=d, return_stages=True)
                for r, c, d in frames]
     torch.cuda.synchronize()
-    launches6 = dict(_build.launch_counts)
+    launches6 = tracing.launches()
     for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
         require(launches6[k] > 0, f"kernel {k} was not launched by detect")
     per_frame = []
@@ -758,9 +758,9 @@ def cascade_phases(dev: torch.device, perf: dict) -> dict:
             row["detect_ms_median_of_5"] = float(np.median(times))
             row["detect_ms"] = times
         per_frame.append(row)
-    _build.reset_launch_counts()
+    tracing.reset()
     pipe.detect(*frames[0][:2], threshold=thr, depth_mm=frames[0][2])
-    per_detect = dict(_build.launch_counts)
+    per_detect = tracing.launches()
     emit("cascade_golden", equal_matches=True, frames=per_frame, launches=launches6,
          launches_per_detect=per_detect, setup_s=setup6_s,
          pose_tolerance_deg_mm=POSE_TOL)
@@ -965,10 +965,10 @@ def k5_phase(dev, det, bank, rgbs, deps, perf: dict) -> dict:
     launch counts of the K5 chain's run."""
     from linemod_pose_estimation_tpu_torch.models.detector import Detector
     from linemod_pose_estimation_tpu_torch.models.serving import BatchedMatcher
-    from linemod_pose_estimation_tpu_torch.ops import _build
     from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
     from linemod_pose_estimation_tpu_torch.ops import match as M
     from linemod_pose_estimation_tpu_torch.utils import kernel_cases as KC
+    from linemod_pose_estimation_tpu_torch.utils import tracing
 
     cid = bank.class_id
     xm = BatchedMatcher(det, cid, THRESHOLD, B_MAIN, top_k=128, device=dev)
@@ -982,12 +982,12 @@ def k5_phase(dev, det, bank, rgbs, deps, perf: dict) -> dict:
 
     chain()  # warm-up
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     R0, cands, m5 = chain()
     torch.cuda.synchronize()
     chain_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(_build.launch_counts)
+    launches = tracing.launches()
     for k in ("quantize_cg", "spread_response", "refine_scores"):
         require(launches[k] > 0, f"kernel {k} was not launched by the K5 chain")
     chain_repeats = timed(chain, 3)
@@ -1079,7 +1079,7 @@ def two_object_phase(dev, bank, rgbs, deps) -> dict:
     from linemod_pose_estimation_tpu_torch.models.serving import (
         BatchedMatcher, MultiClassBatchedMatcher, slice_settings)
     from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
-    from linemod_pose_estimation_tpu_torch.ops import _build
+    from linemod_pose_estimation_tpu_torch.utils import tracing
 
     cid = bank.class_id
     cid2 = cid + "_second"
@@ -1120,12 +1120,12 @@ def two_object_phase(dev, bank, rgbs, deps) -> dict:
     mk, mp = matcher(td, B_MAIN), matcher(td, B_MAIN, plain=True)
     mk.match_batch(rgbs, deps)  # warm-up
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     merged = mk.match_batch(rgbs, deps)
     torch.cuda.synchronize()
     merged_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(_build.launch_counts)
+    launches = tracing.launches()
     for k in ("quantize_cg", "spread_response", "walk_scores"):
         require(launches[k] > 0, f"kernel {k} was not launched by the two-object path")
     stats = mk.last_pool
@@ -1164,7 +1164,7 @@ def prune_phase(dev, det, bank, two: dict) -> dict:
     from linemod_pose_estimation_tpu_torch.models.serving import (
         BatchedMatcher, MultiClassBatchedMatcher, slice_settings)
     from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
-    from linemod_pose_estimation_tpu_torch.ops import _build
+    from linemod_pose_estimation_tpu_torch.utils import tracing
 
     with np.load(PRUNE_GOLDEN) as z:
         gold = {k: z[k] for k in z.files}
@@ -1224,10 +1224,10 @@ def prune_phase(dev, det, bank, two: dict) -> dict:
         m = BatchedMatcher(det, cid, thr, B_MAIN, top_k=top_k, prune=True, device=dev, **kw)
         m.match_batch(rgbs, deps)  # warm-up
         torch.cuda.synchronize()
-        _build.reset_launch_counts()
+        tracing.reset()
         got = m.match_batch(rgbs, deps)
         torch.cuda.synchronize()
-        launches = dict(_build.launch_counts)
+        launches = tracing.launches()
         for k in ("quantize_cg", "spread_response", "walk_scores"):
             require(launches[k] > 0, f"kernel {k} was not launched by prune mode {key}")
         pp, fp = m.last_prune, m.last_fine
@@ -1272,10 +1272,10 @@ def prune_phase(dev, det, bank, two: dict) -> dict:
                                   top_k=two["top_k"], device=dev)
     mc.match_batch(rgbs, deps)  # warm-up
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
+    tracing.reset()
     got = mc.match_batch(rgbs, deps)
     torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
+    launches = tracing.launches()
     for k in ("quantize_cg", "spread_response", "walk_scores"):
         require(launches[k] > 0, f"kernel {k} was not launched by the two-object matcher")
     pp = mc.last_prune
@@ -1313,11 +1313,11 @@ def prune_phase(dev, det, bank, two: dict) -> dict:
                            "pool_fine": 64 * B_MAIN})
     rm.match_batch(rgbs)  # warm-up
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
+    tracing.reset()
     R0, cands, n_valid = rm.candidates(rgbs)
     got = rm.refine(R0, cands, n_valid)
     torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
+    launches = tracing.launches()
     require((launches["quantize_cg"], launches["spread_response"],
              launches["walk_scores"]) == (2, 2, 1),
             f"RGB-only bank: launches {launches}, expected K1 x2, K2 x2, K3 x1")
@@ -1380,9 +1380,9 @@ def serving_phase(dev: torch.device, perf: dict) -> tuple[dict, dict]:
     from linemod_pose_estimation_tpu_torch.models.serving import (
         BatchedMatcher, PipelinedRunner, look_at_point, slice_settings, template_refinement)
     from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
-    from linemod_pose_estimation_tpu_torch.ops import _build
     from linemod_pose_estimation_tpu_torch.ops import raster as RA
     from linemod_pose_estimation_tpu_torch.utils import scenes as S
+    from linemod_pose_estimation_tpu_torch.utils import tracing
     from linemod_pose_estimation_tpu_torch.utils.stl import save_binary_stl
 
     with np.load(SERVING_GOLDEN) as z:
@@ -1414,13 +1414,13 @@ def serving_phase(dev: torch.device, perf: dict) -> tuple[dict, dict]:
     svc.register_object(0, ObjectConfig(pipeline=pipe, threshold=thr))
     svc.linemod_object_pose(0)  # warm-up
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
+    tracing.reset()
     answers = []
     for f in range(nf):
         cur["f"] = f
         answers.append(svc.linemod_object_pose(0))
     torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
+    launches = tracing.launches()
     for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
         require(launches[k] > 0, f"kernel {k} was not launched by the service")
     errs = []
@@ -1437,10 +1437,10 @@ def serving_phase(dev: torch.device, perf: dict) -> tuple[dict, dict]:
     require((unknown.translation, unknown.rotation) == identity,
             f"service: an unknown object id must give the identity, got {unknown}")
     cur["f"] = 0
-    _build.reset_launch_counts()
+    tracing.reset()
     svc.linemod_object_pose(0)
     torch.cuda.synchronize()
-    per_request = dict(_build.launch_counts)
+    per_request = tracing.launches()
     request_ms = timed(lambda: svc.linemod_object_pose(0), 5)
 
     # -- the detections, the nodes, look_at_point, template_refinement -------
@@ -1488,10 +1488,10 @@ def serving_phase(dev: torch.device, perf: dict) -> tuple[dict, dict]:
     perf["raster_zbuffer"]["template_refinement_captured"] = dict(
         **raster_vs_plain(coefs, w, h, "template_refinement_captured"),
         **raster_times(coefs, w, h))
-    _build.reset_launch_counts()
+    tracing.reset()
     template_refinement(*first_refinement)
     torch.cuda.synchronize()
-    refine_launches = dict(_build.launch_counts)
+    refine_launches = tracing.launches()
     emit("serving_golden", frames=nf, threshold=thr, bank="boxNew_full (RGB-only)",
          launches=launches, launches_per_request=per_request,
          request_ms_median_of_5=float(np.median(request_ms)), request_ms=request_ms,
@@ -1563,10 +1563,10 @@ def serving_phase(dev: torch.device, perf: dict) -> tuple[dict, dict]:
                for k in range(8)]
     st.step(*batches[0])  # warm-up
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
+    tracing.reset()
     st.step(*batches[0])
     torch.cuda.synchronize()
-    per_step = dict(_build.launch_counts)
+    per_step = tracing.launches()
     for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
         require(per_step[k] > 0, f"kernel {k} was not launched by the streaming step")
     blocking, block_ms = [], []
@@ -1639,12 +1639,12 @@ def trainer_phase(dev: torch.device, perf: dict) -> dict:
     from linemod_pose_estimation_tpu_torch.models import trainer as TTR
     from linemod_pose_estimation_tpu_torch.models.renderer import Renderer
     from linemod_pose_estimation_tpu_torch.models.templates import DetectorParams
-    from linemod_pose_estimation_tpu_torch.ops import _build
     from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
     from linemod_pose_estimation_tpu_torch.ops import features as F
     from linemod_pose_estimation_tpu_torch.ops import raster as RA
     from linemod_pose_estimation_tpu_torch.ops import roofline as RL
     from linemod_pose_estimation_tpu_torch.utils import scenes as S
+    from linemod_pose_estimation_tpu_torch.utils import tracing
     from linemod_pose_estimation_tpu_torch.utils.stl import save_binary_stl
     from linemod_pose_estimation_tpu_torch.utils.viewsphere import generate_views
 
@@ -1740,12 +1740,12 @@ def trainer_phase(dev: torch.device, perf: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
-    _build.reset_launch_counts()
+    tracing.reset()
     plain = calls_of([(RA, "raster_zbuffer_plain"), (F, "quantize_color_gradient")],
                      lambda: TTR.train_from_stl(stl, c, max_views=TRAIN_VIEWS, device=dev,
                                                 stats=stats))
     torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
+    launches = tracing.launches()
     n = stats["chunks"]
     require(launches["raster_zbuffer"] == n and launches["quantize_cg"] == 2 * n,
             f"trainer: {launches} over {n} chunks (want K4 x1, K1 x2 a chunk)")
@@ -1796,11 +1796,11 @@ def aux_phase(dev: torch.device) -> dict:
     from linemod_pose_estimation_tpu_torch.models.detector import Detector
     from linemod_pose_estimation_tpu_torch.models.grasp import grasping_pose_region_growing
     from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
-    from linemod_pose_estimation_tpu_torch.ops import _build
     from linemod_pose_estimation_tpu_torch.ops import filters as FL
     from linemod_pose_estimation_tpu_torch.ops import match as M
     from linemod_pose_estimation_tpu_torch.ops import segmentation as SG
     from linemod_pose_estimation_tpu_torch.utils import pointcloud as P
+    from linemod_pose_estimation_tpu_torch.utils import tracing
 
     with np.load(CASCADE_GOLDEN) as z:
         g = {k: z[k] for k in z.files}
@@ -1820,10 +1820,10 @@ def aux_phase(dev: torch.device) -> dict:
     for engine, det in dets.items():
         det.match_raw(rgbs[0], thr, depth_mm=deps[0])  # warm-up
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
+    tracing.reset()
     first = dets["gather"].match_raw(rgbs[0], thr, depth_mm=deps[0])[cid]
     torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
+    launches = tracing.launches()
     for k in ("quantize_cg", "spread_response", "walk_scores"):
         require(launches[k] > 0, f"kernel {k} was not launched by the gather match")
     for f in range(rgbs.shape[0]):
@@ -1977,13 +1977,13 @@ def _host(rec) -> dict:
 def _counted(fn, *args):
     """fn(*args) with the launch counts set to 0 just before it and read
     just after (the launches of that call alone)."""
-    from linemod_pose_estimation_tpu_torch.ops import _build
+    from linemod_pose_estimation_tpu_torch.utils import tracing
 
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
+    tracing.reset()
     out = fn(*args)
     torch.cuda.synchronize()
-    return out, dict(_build.launch_counts)
+    return out, tracing.launches()
 
 
 def _event_ms(fn) -> float:
@@ -2377,6 +2377,7 @@ def main() -> int:
     from linemod_pose_estimation_tpu_torch.ops import roofline as RL
     from linemod_pose_estimation_tpu_torch.utils import kernel_cases as KC
     from linemod_pose_estimation_tpu_torch.utils import scenes as S
+    from linemod_pose_estimation_tpu_torch.utils import tracing
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -2385,7 +2386,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     emit("build", card=card, torch=torch.__version__, cuda=torch.version.cuda,
-         build_s=time.perf_counter() - t0, nvcc_s=_build.last_build_seconds)
+         build_s=time.perf_counter() - t0)
     perf = {k: {} for k in KERNELS}
     if sys.argv[1:] == ["--only", "options"]:
         options_phase(dev, perf)
@@ -2495,12 +2496,12 @@ def main() -> int:
     setup_s = time.perf_counter() - t0
     main_m.match_batch(rgbs, deps)  # warm-up (cuBLASLt heuristics, caches)
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     m_kern = main_m.match_batch(rgbs, deps)
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
-    launches = dict(_build.launch_counts)
+    launches = tracing.launches()
     for k in ("quantize_cg", "spread_response", "walk_scores"):  # this path's kernels
         require(launches[k] > 0, f"kernel {k} was not launched on the main path")
     stats = main_m.last_pool

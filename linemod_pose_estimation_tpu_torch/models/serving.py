@@ -36,6 +36,7 @@ import torch
 from ..ops import match as M
 from ..ops.icp import icp_two_stage
 from ..utils import pointcloud as pcu
+from ..utils import tracing
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -65,10 +66,19 @@ def _frames(rgbs, depths_mm, use_depth: bool, device):
             "this bank uses the DepthNormal modality: match_batch "
             "requires depths_mm (B, H, W) in millimetres"
         )
-    rgbs = torch.as_tensor(rgbs, device=device)
-    if depths_mm is not None:
-        depths_mm = torch.as_tensor(depths_mm, device=device)
+    with tracing.span("lpe.entry.h2d"):
+        rgbs = _to_device(rgbs, device)
+        if depths_mm is not None:
+            depths_mm = _to_device(depths_mm, device)
     return rgbs, depths_mm
+
+
+def _to_device(a, device) -> torch.Tensor:
+    """`a` as a tensor on `device`.  A copy from host memory to a card
+    returns once the copy is done: a host sync, counted as one."""
+    if torch.device(device).type == "cuda" and not (isinstance(a, torch.Tensor) and a.is_cuda):
+        tracing.count("sync")
+    return torch.as_tensor(a, device=device)
 
 
 PRUNE_MODES = ("positions", "two_axis", "pooled")
@@ -239,7 +249,8 @@ class BatchedMatcher:
     def match_batch(self, rgbs, depths_mm=None) -> M.Matches:
         """(B, H, W, 3) uint8 [+ (B, H, W) depth mm] -> batched Matches with
         (B, top_k) tensors on the matcher's device (mask by .valid)."""
-        return self.refine(*self.candidates(rgbs, depths_mm))
+        with tracing.span("lpe.batch"):
+            return self.refine(*self.candidates(rgbs, depths_mm))
 
     def match_batch_list(self, rgbs, depths_mm=None) -> list[M.Matches]:
         """match_batch, unstacked to per-frame Matches records."""
@@ -364,7 +375,8 @@ class MultiClassBatchedMatcher:
     def match_batch(self, rgbs, depths_mm=None) -> dict[str, M.Matches]:
         """(B, H, W, 3) uint8 [+ (B, H, W) mm] -> {class_id: Matches} with
         (B, top_k) tensors, template ids re-based per class."""
-        return self.refine(*self.candidates(rgbs, depths_mm))
+        with tracing.span("lpe.batch"):
+            return self.refine(*self.candidates(rgbs, depths_mm))
 
 
 class PipelinedRunner:

@@ -33,6 +33,7 @@ from ..ops import cuda_preprocess as CP
 from ..ops import features as F
 from ..ops.match import LevelFeatures
 from ..utils import opencv_yaml as oy
+from ..utils import tracing
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -141,6 +142,7 @@ def _select_scattered(candidates: np.ndarray, scores: np.ndarray, num: int) -> n
     those >= `distance` from every ALREADY-KEPT feature; when the scan wraps,
     relax distance by 1 and continue — accepted features persist across
     relaxations, as in OpenCV's loop."""
+    tracing.count("extract.candidates", candidates.shape[0])
     order = np.argsort(-scores, kind="stable")
     return _select_from_sorted(candidates[order], num)
 
@@ -271,6 +273,7 @@ def extract_template(
     read; otherwise the quantizations are computed on `device` from `rgb`
     (H, W, 3) u8 and, with DepthNormal, `depth_mm` (H, W) in mm (None
     then gives None, as the reference's addTemplate fails)."""
+    tracing.count("extract.views")
     levels = params.pyramid_levels
     if precomputed is None:
         if params.use_depth_normal and depth_mm is None:
@@ -291,14 +294,18 @@ def extract_template(
     cur_mask = (mask > 0).astype(np.uint8)
     for l in range(levels):
         if params.use_color_gradient:
-            g = extract_gradient_features(cur_mask, params.color, params.color.num_features,
-                                          *precomputed["grad"][l])
+            with tracing.span("lpe.extract.grad"):
+                g = extract_gradient_features(cur_mask, params.color,
+                                              params.color.num_features,
+                                              *precomputed["grad"][l])
             if g is None:
                 return None
             grad_l.append(g)
         if params.use_depth_normal:
-            n = extract_normal_features(cur_mask, params.depth, params.depth.num_features,
-                                        precomputed["norm"][l])
+            with tracing.span("lpe.extract.norm"):
+                n = extract_normal_features(cur_mask, params.depth,
+                                            params.depth.num_features,
+                                            precomputed["norm"][l])
             if n is None:
                 return None
             norm_l.append(n)

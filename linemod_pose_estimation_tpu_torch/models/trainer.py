@@ -39,6 +39,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils import tracing
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.stl import load_stl
 from ..utils.viewsphere import ViewSphereParams, generate_views
@@ -187,6 +188,11 @@ def train_from_stl(
     extracting (`extract_s`); on a card also each chunk's device span
     (`chunk_device_ms`: CUDA events from its first launch to its last copy)
     and their sum over the wall time (`busy_share`)."""
+    with tracing.span("lpe.train"):
+        return _train_from_stl(stl_path, config, max_views, progress, device, stats)
+
+
+def _train_from_stl(stl_path, config, max_views, progress, device, stats):
     t_start = time.perf_counter()
     cfg = config or TrainerConfig()
     dev = resolve_device(device)
@@ -214,11 +220,9 @@ def train_from_stl(
     timing = dict(dispatch_s=0.0, wait_s=0.0, extract_s=0.0)
 
     def dispatch(ci):
-        t0 = time.perf_counter()
-        s = starts[ci]
-        chunk = _ChunkOnDevice(r, Rs[s:s + B], Ts[s:s + B], dp, pinned[ci % 2])
-        timing["dispatch_s"] += time.perf_counter() - t0
-        return chunk
+        with tracing.timed("lpe.trainer.dispatch", timing, "dispatch_s"):
+            s = starts[ci]
+            return _ChunkOnDevice(r, Rs[s:s + B], Ts[s:s + B], dp, pinned[ci % 2])
 
     Rl, Tl, Ks, Ds, Ods, Rects = [], [], [], [], [], []
     cid = cfg.class_id
@@ -228,27 +232,25 @@ def train_from_stl(
         cur = pending
         if ci + 1 < len(starts):
             pending = dispatch(ci + 1)
-        t0 = time.perf_counter()
-        span = cur.wait()
-        timing["wait_s"] += time.perf_counter() - t0
+        with tracing.timed("lpe.trainer.wait", timing, "wait_s"):
+            span = cur.wait()
         if span is not None:
             chunk_ms.append(span)
-        t0 = time.perf_counter()
-        chunk = views[s:s + B]
-        tids = add_views(det, cid, cur.host)
-        rect, centre = cur.host[1], cur.host[2]
-        for j, (v, tid) in enumerate(zip(chunk, tids)):
-            if tid < 0:
-                continue
-            # D = Ori_dist - the render's centre surface depth
-            cd = float(centre[j]) / 1000.0
-            Rl.append(v.R)
-            Tl.append(v.T)
-            Ks.append(K_np)
-            Ds.append(v.D_obj - float(cd))
-            Ods.append(v.D_obj)
-            Rects.append(rect[j].copy())
-        timing["extract_s"] += time.perf_counter() - t0
+        with tracing.timed("lpe.trainer.extract", timing, "extract_s"):
+            chunk = views[s:s + B]
+            tids = add_views(det, cid, cur.host)
+            rect, centre = cur.host[1], cur.host[2]
+            for j, (v, tid) in enumerate(zip(chunk, tids)):
+                if tid < 0:
+                    continue
+                # D = Ori_dist - the render's centre surface depth
+                cd = float(centre[j]) / 1000.0
+                Rl.append(v.R)
+                Tl.append(v.T)
+                Ks.append(K_np)
+                Ds.append(v.D_obj - float(cd))
+                Ods.append(v.D_obj)
+                Rects.append(rect[j].copy())
         if progress:
             print(f"trained {det.num_templates(cid)} / {s + len(chunk)} views")
 

@@ -21,7 +21,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 
 import torch
 
@@ -38,10 +37,6 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-Xcompiler", "-fPIC",
 )
-
-# One plain integer per kernel: each wrapper adds one where it launches.
-launch_counts = {"quantize_cg": 0, "spread_response": 0, "walk_scores": 0,
-                 "raster_zbuffer": 0, "refine_scores": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,12 +56,6 @@ _SIGNATURES = {
 }
 
 _lib = None
-last_build_seconds: float | None = None
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -82,7 +71,7 @@ def _nvcc() -> str:
 
 def library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
-    global _lib, last_build_seconds
+    global _lib
     if _lib is not None:
         return _lib
     srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
@@ -93,7 +82,6 @@ def library() -> ctypes.CDLL:
     so = os.path.join(BUILD_DIR, f"liblpe_torch_kernels_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        t0 = time.perf_counter()
         nvcc = _nvcc()
         tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
         objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
@@ -122,7 +110,6 @@ def library() -> ctypes.CDLL:
             for f in (*objs, tmp):
                 if os.path.exists(f):
                     os.remove(f)
-        last_build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(so)
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)

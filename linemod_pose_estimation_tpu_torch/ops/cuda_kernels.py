@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from . import _build
 from . import features as F
 
@@ -78,7 +79,7 @@ def spread_response(quant: torch.Tensor, T: int, out: torch.Tensor | None = None
                                   out.shape[1], channel, spread_rows(B, H, W),
                                   *_build.device_and_stream(quant))
     _build.check(err, "spread_response")
-    _build.launch_counts["spread_response"] += 1
+    tracing.count("launch.spread_response")
     return out[:, channel:channel + 8]
 
 
@@ -150,7 +151,7 @@ def walk_scores(R0, oris, dys, dxs, live, gy0, gx0, n_valid, T: int
         out.data_ptr(), B, C, H, W, K, Fmax, T, *_build.device_and_stream(R0),
     )
     _build.check(err, "walk_scores")
-    _build.launch_counts["walk_scores"] += 1
+    tracing.count("launch.walk_scores")
     return out
 
 
@@ -272,5 +273,5 @@ def refine_scores(R, oris, dys, dxs, nf, anchor_y, anchor_x,
         int(words_readable(R)), *_build.device_and_stream(R),
     )
     _build.check(err, "refine_scores")
-    _build.launch_counts["refine_scores"] += 1
+    tracing.count("launch.refine_scores")
     return out

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import _build
 from . import features as F
 
@@ -47,7 +48,7 @@ def _launch(rgb: torch.Tensor, weak_threshold: float, with_mag2: bool):
         B, H, W, ROWS, weak2, *_build.device_and_stream(rgb),
     )
     _build.check(err, "quantize_cg")
-    _build.launch_counts["quantize_cg"] += 1
+    tracing.count("launch.quantize_cg")
     return out, mag2
 
 

@@ -58,6 +58,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..utils import tracing
 from . import features as F
 
 _NEG = -(2**30)  # margin sentinel below any real margin
@@ -331,12 +332,20 @@ def position_validity_flat(size: torch.Tensor, T: int, Hc: int, Wc: int) -> torc
     return position_validity(size, T, Hc, Wc).reshape(size.shape[0], -1).t()
 
 
+def _device_scalar(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A host number as a 0-d tensor on `device`.  On a card the copy
+    blocks until the stream has drained: a host sync, counted as one."""
+    if device.type == "cuda":
+        tracing.count("sync")
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
 def int_score_threshold(threshold: float, total_features: torch.Tensor) -> torch.Tensor:
     """Per-template integer raw-score threshold t_int (f32) with
     ub >= t_int  <=>  sim_ub >= threshold.  The same f32 expression, in
     the same order, as the reference (whose threshold is a traced f32):
     the slacks can only ADD survivors."""
-    thr = torch.tensor(threshold, dtype=torch.float32, device=total_features.device)
+    thr = _device_scalar(threshold, torch.float32, total_features.device)
     return torch.ceil((thr - 1e-3) * 0.04 * total_features.to(torch.float32) - 1e-4)
 
 
@@ -374,7 +383,7 @@ def _coarse_matches(vals, t, pos, Wc: int, threshold: float) -> CoarseMatches:
         torch.div(pos, Wc, rounding_mode="floor").to(torch.int32),
         (pos % Wc).to(torch.int32),
         vals,
-        vals >= torch.tensor(threshold, dtype=torch.float32, device=vals.device),
+        vals >= _device_scalar(threshold, torch.float32, vals.device),
     )
 
 
@@ -731,23 +740,31 @@ def match_pooled_fine_with_fallback(
     """
     if T % g != 0:
         raise ValueError(f"g={g} must divide T={T}")
-    B = Rb.shape[0]
-    dev = Rb.device
-    if W_group is not None:
-        pp = pool_plan_grouped(
-            Rb, W_cell, W_group, group_counts, total_features, vpos_flat,
-            threshold, T, Kc, pool0, pool1, group,
-        )
-    else:
-        margins = position_margins_batched(
-            Rb, W_cell, total_features, vpos_flat, threshold, T, Kc
-        )
-        pp = pool_plan_from_margins(margins, pool1)
-    t_int = int_score_threshold(threshold, total_features).to(torch.int32)
-    cands, n_valid, stats = _pooled_selects(
-        Rb, pp, t_int, W_gemm, W_fine, total_features, vpos_flat,
-        [(vpos_flat, threshold)], T, Kc, g, pool1, pool2, top_k, Wc, r_cap)
+    with tracing.span("lpe.pool"):
+        with tracing.span("lpe.pool.coarse"):
+            if W_group is not None:
+                pp = pool_plan_grouped(
+                    Rb, W_cell, W_group, group_counts, total_features, vpos_flat,
+                    threshold, T, Kc, pool0, pool1, group,
+                )
+            else:
+                margins = position_margins_batched(
+                    Rb, W_cell, total_features, vpos_flat, threshold, T, Kc
+                )
+                pp = pool_plan_from_margins(margins, pool1)
+            t_int = int_score_threshold(threshold, total_features).to(torch.int32)
+        cands, n_valid, stats = _pooled_selects(
+            Rb, pp, t_int, W_gemm, W_fine, total_features, vpos_flat,
+            [(vpos_flat, threshold)], T, Kc, g, pool1, pool2, top_k, Wc, r_cap)
     return cands[0], n_valid[0], stats
+
+
+def _read_flag(flag: torch.Tensor) -> bool:
+    """A flag read on the host: on a card one sync, counted."""
+    if flag.is_cuda:
+        tracing.count("sync")
+    with tracing.span("lpe.sync"):
+        return bool(flag.item())
 
 
 def _pooled_selects(
@@ -765,9 +782,12 @@ def _pooled_selects(
     dev = Rb.device
     P2 = min(pool2, pool1)
     false = torch.zeros((), dtype=torch.bool, device=dev)
+    tracing.count("batch")
 
-    if pp.overflow.item():
+    coarse_of = _read_flag(pp.overflow)
+    if coarse_of:
         # Coarse pool overflowed: the fine stage and the selects never run.
+        tracing.count("pool.coarse_overflow")
         z = torch.zeros((B, top_k), dtype=torch.int32, device=dev)
         empty = CoarseMatches(z, z, z, torch.full((B, top_k), -1.0, device=dev),
                               torch.zeros((B, top_k), dtype=torch.bool, device=dev))
@@ -777,35 +797,43 @@ def _pooled_selects(
         fine_total = torch.zeros((), dtype=torch.int64, device=dev)
         fine_m = torch.zeros(B, dtype=torch.int64, device=dev)
     else:
-        ubf = fine_ub_at_pool(Rb, pp.frame, pp.pos, W_fine, T, Kc, g)
-        fmargin = torch.where(vpos_flat[pp.pos] & pp.keep[:, None],
-                              ubf - t_int[None, :], _NEG)
-        felig = fmargin.amax(dim=1) >= 0
-        fine_m = _per_frame_counts(pp.frame, felig, B)
-        idx2, keep2, fine_total = _compact_eligible_flat(felig, P2)
-        of2 = fine_total > P2
-        if of2.item():
-            frame, pos, keep = pp.frame, pp.pos, pp.keep
-            starts, m_surv = pp.starts, pp.m_survivors
-        else:
-            frame, pos, keep = pp.frame[idx2], pp.pos[idx2], keep2
-            starts, m_surv = torch.cumsum(fine_m, 0) - fine_m, fine_m
-        raw = coarse_scores_gemm_pooled(Rb, W_gemm, frame, pos, T, Kc)
-        cands, n_valid, sel_of = [], [], false
-        for vpos_c, thr_c in classes:
-            c, nv, so = select_candidates_pooled(
-                raw, total_features, vpos_c, frame, pos, keep, starts, m_surv,
-                thr_c, top_k, Wc, r_cap,
-            )
-            cands.append(c)
-            n_valid.append(nv)
-            sel_of = sel_of | so
+        with tracing.span("lpe.pool.fine"):
+            ubf = fine_ub_at_pool(Rb, pp.frame, pp.pos, W_fine, T, Kc, g)
+            fmargin = torch.where(vpos_flat[pp.pos] & pp.keep[:, None],
+                                  ubf - t_int[None, :], _NEG)
+            felig = fmargin.amax(dim=1) >= 0
+            fine_m = _per_frame_counts(pp.frame, felig, B)
+            idx2, keep2, fine_total = _compact_eligible_flat(felig, P2)
+            of2 = fine_total > P2
+        fine_of = _read_flag(of2)
+        if fine_of:
+            tracing.count("pool.fine_overflow")
+        with tracing.span("lpe.pool.exact"):
+            if fine_of:
+                frame, pos, keep = pp.frame, pp.pos, pp.keep
+                starts, m_surv = pp.starts, pp.m_survivors
+            else:
+                frame, pos, keep = pp.frame[idx2], pp.pos[idx2], keep2
+                starts, m_surv = torch.cumsum(fine_m, 0) - fine_m, fine_m
+            raw = coarse_scores_gemm_pooled(Rb, W_gemm, frame, pos, T, Kc)
+            cands, n_valid, sel_of = [], [], false
+            for vpos_c, thr_c in classes:
+                c, nv, so = select_candidates_pooled(
+                    raw, total_features, vpos_c, frame, pos, keep, starts, m_surv,
+                    thr_c, top_k, Wc, r_cap,
+                )
+                cands.append(c)
+                n_valid.append(nv)
+                sel_of = sel_of | so
     fallback = pp.overflow | sel_of
-    if fallback.item():
-        raw = coarse_scores_gemm_flat_batched(Rb, W_gemm, T, Kc)
-        cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k, Wc)
-                 for vpos_c, thr_c in classes]
-        n_valid = [c.valid.sum(dim=1).to(torch.int32) for c in cands]
+    if _read_flag(fallback):
+        if not coarse_of:
+            tracing.count("pool.select_overflow")
+        with tracing.span("lpe.pool.fallback"):
+            raw = coarse_scores_gemm_flat_batched(Rb, W_gemm, T, Kc)
+            cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k, Wc)
+                     for vpos_c, thr_c in classes]
+            n_valid = [c.valid.sum(dim=1).to(torch.int32) for c in cands]
     stats = PooledStats(
         coarse_total=pp.total, coarse_m=pp.m_survivors,
         coarse_overflow=pp.overflow, fine_total=fine_total, fine_m=fine_m,
@@ -915,8 +943,8 @@ def _sim_upper_bound(Rb, W_cell: MatmulWeight, total_features, vpos_flat, T, Kc)
 def _float_slack_threshold(threshold: float, device) -> torch.Tensor:
     """threshold - 1e-3 in f32: the two_axis planners' float eligibility
     rule (the slack can only ADD survivors)."""
-    return (torch.tensor(threshold, dtype=torch.float32, device=device)
-            - torch.tensor(1e-3, dtype=torch.float32, device=device))
+    return (_device_scalar(threshold, torch.float32, device)
+            - _device_scalar(1e-3, torch.float32, device))
 
 
 def _top_eligible(score: torch.Tensor, elig: torch.Tensor, k: int):
@@ -1007,7 +1035,7 @@ def prune_positions_batched(
         torch.arange(N, dtype=torch.int32, device=dev),
         torch.ones(N, dtype=torch.bool, device=dev),
         p_idx.to(torch.int32), pv > _NEG,
-        torch.tensor(N, dtype=torch.int32, device=dev), m_surv,
+        _device_scalar(N, torch.int32, dev), m_surv,
         (m_surv > km).any(),
     )
 
@@ -1116,7 +1144,7 @@ def _positions_selects(
                                            p_keep, thr_c, top_k, Wc)
                 for vpos_c, thr_c in classes]
 
-    if pp.overflow.item():
+    if _read_flag(pp.overflow):
         raw = coarse_scores_gemm_flat_batched(Rb, W_gemm, T, Kc)
         cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k, Wc)
                  for vpos_c, thr_c in classes]
@@ -1133,7 +1161,7 @@ def _positions_selects(
     fp = fine_plan_from_ub(ubf, total_features, vpos_flat, pp.p_idx, pp.p_keep,
                            thr_bound, m2_cap)
     del ubf
-    if fp.overflow.item():
+    if _read_flag(fp.overflow):
         return select_at(pp.p_idx, pp.p_keep), fp
     return select_at(fp.p_idx, fp.p_keep), fp
 
@@ -1324,18 +1352,19 @@ def match_pooled_multiclass(
     if T % g != 0:
         raise ValueError(f"g={g} must divide T={T}")
     thr_min = min(thresholds)
-    margins = position_margins_batched(
-        Rb, W_cell, total_features, vpos_flat, thr_min, T, Kc)
-    pp = pool_plan_from_margins(margins, pool1)
-    # The reference computes this t_int from a Python float (a static
-    # argument there): (thr - 1e-3) * 0.04 in double, rounded to f32 once.
-    scale = torch.tensor((thr_min - 1e-3) * 0.04, dtype=torch.float32,
-                         device=Rb.device)
-    t_int = torch.ceil(scale * total_features.to(torch.float32) - 1e-4).to(torch.int32)
-    classes = _class_columns(vpos_flat, class_slices, thresholds)
-    return _pooled_selects(Rb, pp, t_int, W_gemm, W_fine, total_features,
-                           vpos_flat, classes, T, Kc, g, pool1, pool2, top_k,
-                           Wc, r_cap)
+    with tracing.span("lpe.pool"):
+        with tracing.span("lpe.pool.coarse"):
+            margins = position_margins_batched(
+                Rb, W_cell, total_features, vpos_flat, thr_min, T, Kc)
+            pp = pool_plan_from_margins(margins, pool1)
+            # The reference computes this t_int from a Python float (a static
+            # argument there): (thr - 1e-3) * 0.04 in double, rounded to f32 once.
+            scale = _device_scalar((thr_min - 1e-3) * 0.04, torch.float32, Rb.device)
+            t_int = torch.ceil(scale * total_features.to(torch.float32) - 1e-4).to(torch.int32)
+            classes = _class_columns(vpos_flat, class_slices, thresholds)
+        return _pooled_selects(Rb, pp, t_int, W_gemm, W_fine, total_features,
+                               vpos_flat, classes, T, Kc, g, pool1, pool2, top_k,
+                               Wc, r_cap)
 
 
 def _class_columns(vpos_flat: torch.Tensor, class_slices, thresholds):
@@ -1516,14 +1545,15 @@ def refine_candidates_opencv_batched(
     T = fine_T
     WIN = CK.WIN
     off_f = T // 2 + (T % 2 - 1)
-    plan = walk_plan(R0.shape, feats0, cand, coarse_T, E0, fine_T, total_hw,
-                     y_origin, n_valid)
-    walk = CK.walk_scores_plain if plain else CK.walk_scores
-    flat = walk(R0, *plan.operands(), T).reshape(B * K, WIN * WIN)
-    best = flat.argmax(dim=1)  # first maximum == OpenCV's strict-> walk
+    with tracing.span("lpe.walk"):
+        plan = walk_plan(R0.shape, feats0, cand, coarse_T, E0, fine_T, total_hw,
+                         y_origin, n_valid)
+        walk = CK.walk_scores_plain if plain else CK.walk_scores
+        flat = walk(R0, *plan.operands(), T).reshape(B * K, WIN * WIN)
+        best = flat.argmax(dim=1)  # first maximum == OpenCV's strict-> walk
     raw = torch.gather(flat, 1, best[:, None])[:, 0]
     sim = 100.0 * raw.to(torch.float32) / (4.0 * plan.cnt.clamp(min=1).to(torch.float32))
-    thr = torch.tensor(threshold, dtype=torch.float32, device=R0.device)
+    thr = _device_scalar(threshold, torch.float32, R0.device)
     ok = cand.valid.reshape(-1) & (sim >= thr)
     gx0, gy0 = plan.gx0.reshape(-1), plan.gy0.reshape(-1)
     shp = lambda a: a.reshape(B, K)
@@ -1571,7 +1601,7 @@ def _window_matches(scores, t, cnt, ay, ax, valid, threshold: float) -> Matches:
     best = flat.shape[1] - 1 - flat.flip(1).argmax(dim=1)  # argmax: first max
     raw = torch.gather(flat, 1, best[:, None])[:, 0]
     sim = 100.0 * raw.to(torch.float32) / (4.0 * cnt.clamp(min=1).to(torch.float32))
-    thr = torch.tensor(threshold, dtype=torch.float32, device=scores.device)
+    thr = _device_scalar(threshold, torch.float32, scores.device)
     return Matches(
         template_id=t.to(torch.int32),
         x=(ax + best % window).to(torch.int32),
@@ -1798,18 +1828,20 @@ def preprocess_frames_batched(
         respond = CK.spread_response
     B, H, W = rgbs.shape[:3]
     C = 16 if use_depth else 8
-    R0 = torch.empty((B, C, H, W), dtype=torch.uint8, device=rgbs.device)
-    respond(quant(rgbs), T0, R0, 0)
-    chans = [F.pyr_down(rgbs[..., c].to(torch.float32)) for c in range(3)]
-    rgb1 = torch.empty((*chans[0].shape, 3), dtype=torch.float32, device=rgbs.device)
-    for c, ch in enumerate(chans):
-        rgb1[..., c] = ch
-    R1 = torch.empty((B, C, *rgb1.shape[1:3]), dtype=torch.uint8, device=rgbs.device)
-    respond(quant(rgb1), T1, R1, 0)
-    if use_depth:
-        n0 = F.quantize_depth_normal(depths_mm)
-        respond(n0, T0, R0, 8)
-        respond(n0[:, ::2, ::2].contiguous(), T1, R1, 8)
+    with tracing.span("lpe.preprocess"):
+        R0 = torch.empty((B, C, H, W), dtype=torch.uint8, device=rgbs.device)
+        respond(quant(rgbs), T0, R0, 0)
+        chans = [F.pyr_down(rgbs[..., c].to(torch.float32)) for c in range(3)]
+        rgb1 = torch.empty((*chans[0].shape, 3), dtype=torch.float32, device=rgbs.device)
+        for c, ch in enumerate(chans):
+            rgb1[..., c] = ch
+        R1 = torch.empty((B, C, *rgb1.shape[1:3]), dtype=torch.uint8, device=rgbs.device)
+        respond(quant(rgb1), T1, R1, 0)
+        if use_depth:
+            with tracing.span("lpe.preprocess.depth_normal"):
+                n0 = F.quantize_depth_normal(depths_mm)
+            respond(n0, T0, R0, 8)
+            respond(n0[:, ::2, ::2].contiguous(), T1, R1, 8)
     return R0, R1
 
 
@@ -1891,7 +1923,7 @@ def select_candidates(raw: torch.Tensor, total_features: torch.Tensor,
     vals, idx = _topk_first_index(sim, min(top_k, sim.shape[0]))
     t = torch.div(idx, Hc * Wc, rounding_mode="floor")
     rem = idx % (Hc * Wc)
-    thr = torch.tensor(threshold, dtype=torch.float32, device=raw.device)
+    thr = _device_scalar(threshold, torch.float32, raw.device)
     return CoarseMatches(
         t.to(torch.int32),
         torch.div(rem, Wc, rounding_mode="floor").to(torch.int32),

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from . import _build
 
 # Column layout of the per-triangle coefficient table (csrc/raster_zbuffer.cu
@@ -177,5 +178,5 @@ def raster_zbuffer(coefs: torch.Tensor, width: int, height: int
                                  scratch.data_ptr(), P, Tn, height, width,
                                  *_build.device_and_stream(coefs))
     _build.check(err, "raster_zbuffer")
-    _build.launch_counts["raster_zbuffer"] += 1
+    tracing.count("launch.raster_zbuffer")
     return zbuf, sbuf

@@ -31,7 +31,6 @@ from linemod_pose_estimation_tpu_torch.models.renderer import _pad_triangles
 from linemod_pose_estimation_tpu_torch.models.serving import (
     BatchedMatcher, MultiClassBatchedMatcher)
 from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
-from linemod_pose_estimation_tpu_torch.ops import _build
 from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
 from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
 from linemod_pose_estimation_tpu_torch.ops import features as TF
@@ -40,6 +39,7 @@ from linemod_pose_estimation_tpu_torch.ops import raster as RA
 from linemod_pose_estimation_tpu_torch.utils import kernel_cases as KC
 from linemod_pose_estimation_tpu_torch.utils import pointcloud as TP
 from linemod_pose_estimation_tpu_torch.utils import scenes as S
+from linemod_pose_estimation_tpu_torch.utils import tracing
 
 BANK = "data/boxNew_rgbd_templates.yml.gz"
 PARAMS = "data/boxNew_rgbd_params.yml.gz"
@@ -268,9 +268,9 @@ def test_prune_modes_on_the_card(cuda, case):
     B = rgbs.shape[0]
     make = lambda **k: BatchedMatcher(sub, cid, 70.0, B, top_k=64, prune=True, **kw, **k)
     mk, mp, mc = make(device=cuda), make(device=cuda, plain=True), make(device="cpu")
-    _build.reset_launch_counts()
+    tracing.reset()
     got = mk.match_batch(rgbs, deps)
-    counts = dict(_build.launch_counts)
+    counts = tracing.launches()
     assert (counts["quantize_cg"], counts["spread_response"], counts["walk_scores"]) == (2, 4, 1)
     for m in (mp, mc):
         want = m.match_batch(rgbs, deps)
@@ -331,9 +331,9 @@ def test_rgb_only_bank_on_the_card(cuda):
     for kw in (dict(prune_mode="pooled"), dict()):
         make = lambda **k: BatchedMatcher(sub, cid, 60.0, 2, top_k=64, prune=True,
                                           device=cuda, **kw, **k)
-        _build.reset_launch_counts()
+        tracing.reset()
         got = make().match_batch(rgbs)
-        counts = dict(_build.launch_counts)
+        counts = tracing.launches()
         assert (counts["quantize_cg"], counts["spread_response"]) == (2, 2)
         for a, b in zip(got, make(plain=True).match_batch(rgbs)):
             assert torch.equal(a, b)
@@ -352,10 +352,10 @@ def test_k5_chain_and_two_object_kernels_equal_plain(cuda):
     B = rgbs.shape[0]
     m = BatchedMatcher(td, cid, 70.0, B, top_k=64, device=cuda)
     R0, cands, _ = m.candidates(rgbs, deps)
-    _build.reset_launch_counts()
+    tracing.reset()
     got = TM.refine_candidates_pallas_batched(R0, m.feats0, cands, m.T1, 70.0, m.E0,
                                               fine_T=m.T0)
-    assert _build.launch_counts["refine_scores"] == 1
+    assert tracing.launches()["refine_scores"] == 1
     want = TM.refine_candidates_pallas_batched(R0, m.feats0, cands, m.T1, 70.0, m.E0,
                                                fine_T=m.T0, plain=True)
     for a, b in zip(got, want):
@@ -440,14 +440,14 @@ def test_detect_on_the_card_launches_every_kernel(cuda):
     pipe = DetectionPipeline.from_files(BANK, PARAMS, S.cuboid_mesh(), device=cuda)
     dep = torch.from_numpy(g["depth_mm"][0]).to(cuda)
     cloud = TP.depth_to_cloud(TP.true_div(dep, 1000.0), pipe.K_render)
-    _build.reset_launch_counts()
+    tracing.reset()
     dets, st = pipe.detect(g["rgb"][0], cloud, threshold=float(g["threshold"]),
                            depth_mm=dep, return_stages=True)
     for name, a in st.matches._asdict().items():
         np.testing.assert_array_equal(a.cpu().numpy(), g["m_" + name][0], err_msg=name)
     assert len(dets) >= 1
     for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
-        assert _build.launch_counts[k] > 0, k
+        assert tracing.launches()[k] > 0, k
 
 
 # ---------------------------------------------------------------------------
@@ -580,11 +580,11 @@ def test_detect_options_on_the_card_equal_the_golden(cuda, config):
                                         TC.CascadeParams(**options), device=cuda)
     dep = torch.from_numpy(g["depth_mm"][0]).to(cuda)
     cloud = TP.depth_to_cloud(TP.true_div(dep, 1000.0), pipe.K_render)
-    _build.reset_launch_counts()
+    tracing.reset()
     dets, st = pipe.detect(g["rgb"][0], cloud, threshold=float(g["threshold"]),
                            depth_mm=dep, return_stages=True)
     for k in ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer"):
-        assert _build.launch_counts[k] > 0, k
+        assert tracing.launches()[k] > 0, k
     for name in ("count", "bbox", "valid", "member_idx", "member_valid"):
         np.testing.assert_array_equal(getattr(st.clusters, name).cpu().numpy(),
                                       og["c_" + name][0], err_msg=name)
@@ -621,12 +621,12 @@ def test_template_refinement_raster_on_the_card_equals_plain(cuda, monkeypatch):
     g, _, clouds, pipe = _serving_fixture(cuda)
     seen, kernel = [], RA.raster_zbuffer
     monkeypatch.setattr(RA, "raster_zbuffer", lambda *a: seen.append(a) or kernel(*a))
-    _build.reset_launch_counts()
+    tracing.reset()
     T, _ = template_refinement(torch.from_numpy(g["det_pose"][0][0]).to(cuda),
                                torch.from_numpy(clouds[0]).to(cuda),
                                tuple(int(v) for v in g["det_rect"][0][0]), pipe.triangles,
                                pipe.K_render, pipe.render_wh)
-    assert _build.launch_counts["raster_zbuffer"] == 1 and len(seen) == 1
+    assert tracing.launches()["raster_zbuffer"] == 1 and len(seen) == 1
     coefs, w, h = seen[0]
     assert coefs.shape[0] == 1 and (w, h) == (256, 256)
     (zk, sk), (zp, sp) = kernel(coefs, w, h), RA.raster_zbuffer_plain(coefs, w, h)
@@ -741,12 +741,12 @@ def test_trainer_on_the_card_equals_cpu(cuda, tmp_path, use_depth):
     files = {}
     for dev in ("cpu", "cuda"):
         files[dev] = (str(tmp_path / f"{dev}_t.yml"), str(tmp_path / f"{dev}_p.yml"))
-        _build.reset_launch_counts()
+        tracing.reset()
         _, bank = TTR.train_and_write(stl, *files[dev], cfg, device=dev)
         if dev == "cuda":
             chunks = -(-len(TV.generate_views(cfg.view_sphere)) // cfg.render_batch)
-            assert _build.launch_counts["raster_zbuffer"] == chunks
-            assert _build.launch_counts["quantize_cg"] == 2 * chunks
+            assert tracing.launches()["raster_zbuffer"] == chunks
+            assert tracing.launches()["quantize_cg"] == 2 * chunks
     assert bank.num_templates >= 8
     with open(files["cpu"][0], "rb") as a, open(files["cuda"][0], "rb") as b:
         assert a.read() == b.read()
