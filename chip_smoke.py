@@ -6,8 +6,9 @@ Drives Detector.read -> BatchedMatcher(prune_mode="pooled") -> Matches
 (and every other ported path: phases 6-13) on the committed RGB-D bank at
 full width (480x640 frames, 16 response
 channels, Fmax 128), after building the hand-written CUDA kernels K1
-(ColorGradient quantizer), K2 (spread + response) and K3 (local walk)
-from csrc/.  Phases, one JSON line each:
+(ColorGradient quantizer), K2 (spread + response), K3 (local walk) and
+DN (DepthNormal quantizer and its median) from csrc/.  Phases, one JSON
+line each:
 
   0. card label (nvidia-smi) and the kernel build;
   1. K1 and K2 against their plain PyTorch versions on the card, bitwise,
@@ -16,13 +17,15 @@ from csrc/.  Phases, one JSON line each:
      on odd shapes (widths off the kernels' tiles and off 4, 1- and 7-row
      frames, 1x1 and 3x3 frames; K1 on u8 and f32, K2 at T=5 and 8 into a
      channel slice of a wider stack whose other channels keep their
-     bytes);
+     bytes); DN against the plain DepthNormal on the batch's depths
+     (B=32 at 480x640), timed with its bound, then on
+     utils/kernel_cases.py's depth_normal_cases;
   2a. the untiled 2652-template bank on the 8-frame golden batch: Matches,
       n_valid, PooledStats and R0/R1 hashes equal the JAX reference's
       (tests/data/torch_port_golden.npz);
   2b. B=32 over the bank tiled to 10,624 templates: the kernel path equals
       the plain path (every Matches field); launch counts of K1/K2/K3 in
-      that run, PooledStats, found rate, batch time;
+      that run (DN exactly once), PooledStats, found rate, batch time;
   2c. the same batch with pool_coarse forced tiny: the exhaustive fallback
       runs and the Matches equal 2b's;
   3. K3 against its plain version on 2b's candidate sets, bitwise, timed
@@ -149,15 +152,17 @@ from csrc/.  Phases, one JSON line each:
       rects equal to the reference's renders, timed with its bound; K1's
       magnitude variant against the plain quantizer, bitwise on both
       outputs, at the chunk's two shapes (16 x 480x640 u8, its pyrDown 16 x
-      240x320 f32; timed with its bound) and on ODD_SHAPES; train_and_write
+      240x320 f32; timed with its bound) and on ODD_SHAPES; DN against the
+      plain DepthNormal on the chunk's depths (16 x 480x640, timed with
+      its bound); train_and_write
       in both modes (RGB-only, ColorGradient + DepthNormal) over the
       golden's 32 views against tests/data/torch_trainer_golden.npz (the
       templates YAML byte-identical, the params equal with D within
       D_TOL); trained view 0 re-rendered and matched: template 0 at >= 95;
       train_from_stl in RGB-D over TRAIN_VIEWS views: views/s, wall, the
       host's dispatch / wait / extract seconds, each chunk's device span,
-      busy share, peak memory, launch counts (K4 x1 and K1 x2 a chunk, and
-      no plain version called); then `python -m
+      busy share, peak memory, launch counts (K4 x1, K1 x2 and DN x1 a
+      chunk, and no plain version called); then `python -m
       linemod_pose_estimation_tpu_torch train` as a subprocess on the card
       over the golden's views, its JSON line and files against the golden.
   13. the off-main-path matchers and the aux modules: Detector(engine=
@@ -299,6 +304,9 @@ KERNELS = {
                        "linemod_pose_estimation_tpu/ops/pallas_raster.py:132"),
     "refine_scores": ("K5", "linemod_pose_estimation_tpu_torch/csrc/refine_scores.cu",
                       "linemod_pose_estimation_tpu/ops/pallas_kernels.py:228"),
+    "depth_normal": ("DN", "linemod_pose_estimation_tpu_torch/csrc/depth_normal.cu",
+                     "none (the reference's DepthNormal is XLA: "
+                     "linemod_pose_estimation_tpu/ops/features.py:404)"),
 }
 
 
@@ -421,6 +429,23 @@ def raster_vs_plain(coefs, w: int, h: int, name: str) -> dict:
     err = float(torch.where(hit, (zk - zp).abs() + (sk - sp).abs(), 0.0).max())
     return dict(max_abs_err=err, covered=int(hit.sum()), poses=int(coefs.shape[0]),
                 triangles=int(coefs.shape[1]), viewport=[w, h])
+
+
+def depth_normal_vs_plain(depth, dist: float, diff: float, name: str) -> dict:
+    """DN against the plain DepthNormal on `depth`, bitwise, both timed,
+    with the launch's bound."""
+    from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
+    from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+
+    got = CP.quantize_depth_normal(depth, dist, diff)
+    err = max_abs_err(got, CP.quantize_depth_normal_plain(depth, dist, diff))
+    require(err == 0, f"DN {name} differs from its plain version")
+    return dict(
+        **kernel_times(lambda: CP.quantize_depth_normal(depth, dist, diff),
+                       "depth_normal_kernel"),
+        plain_ms=cuda_ms(lambda: CP.quantize_depth_normal_plain(depth, dist, diff), 3),
+        max_abs_err=err, set_frac=float((got > 0).float().mean()),
+        bound=RL.depth_normal(*depth.shape)._asdict())
 
 
 def raster_times(coefs, w: int, h: int) -> dict:
@@ -1694,8 +1719,12 @@ def trainer_phase(dev: torch.device, perf: dict) -> dict:
                     f"K1 mag2 {h}x{w} {kind} differs from its plain version")
     perf["quantize_cg"]["trainer_odd_shapes"] = dict(
         max_abs_err=0, shapes=[f"{h}x{w}" for h, w in ODD_SHAPES])
+    dist, diff = cfg.detector.depth.distance_threshold, cfg.detector.depth.difference_threshold
+    perf["depth_normal"][f"trainer_{B}x{H}x{W}"] = depth_normal_vs_plain(
+        out.depth_mm, dist, diff, f"trainer {B}x{H}x{W}")
     emit("trainer_kernels_vs_plain", K4=perf["raster_zbuffer"][f"trainer_{B}x{W}x{H}"],
-         K1={k: v for k, v in perf["quantize_cg"].items() if k.startswith("trainer")})
+         K1={k: v for k, v in perf["quantize_cg"].items() if k.startswith("trainer")},
+         DN=perf["depth_normal"][f"trainer_{B}x{H}x{W}"])
     del out, rgb1, coefs
 
     # -- both modes at full width against the golden --------------------------
@@ -1741,14 +1770,16 @@ def trainer_phase(dev: torch.device, perf: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     tracing.reset()
-    plain = calls_of([(RA, "raster_zbuffer_plain"), (F, "quantize_color_gradient")],
+    plain = calls_of([(RA, "raster_zbuffer_plain"), (F, "quantize_color_gradient"),
+                      (F, "quantize_depth_normal")],
                      lambda: TTR.train_from_stl(stl, c, max_views=TRAIN_VIEWS, device=dev,
                                                 stats=stats))
     torch.cuda.synchronize()
     launches = tracing.launches()
     n = stats["chunks"]
-    require(launches["raster_zbuffer"] == n and launches["quantize_cg"] == 2 * n,
-            f"trainer: {launches} over {n} chunks (want K4 x1, K1 x2 a chunk)")
+    require(launches["raster_zbuffer"] == n and launches["quantize_cg"] == 2 * n
+            and launches["depth_normal"] == n,
+            f"trainer: {launches} over {n} chunks (want K4 x1, K1 x2, DN x1 a chunk)")
     require(not plain, f"trainer: plain versions ran on the card: {list(plain)}")
     chunk_ms = stats.pop("chunk_device_ms")
     per_chunk = {k: v // n for k, v in launches.items()}
@@ -2438,7 +2469,15 @@ def main() -> int:
                                                             x.element_size())._asdict()
     q0 = CP.quantize_color_gradient(rgbs, 10.0)
     q1 = CP.quantize_color_gradient(rgb1, 10.0)
-    n0 = F.quantize_depth_normal(deps)
+    perf["depth_normal"]["batch_32x480x640"] = depth_normal_vs_plain(
+        deps, 2000.0, 50.0, "batch 32x480x640")
+    dn_cases = KC.depth_normal_cases(dev)
+    for name, (d, dist, diff) in dn_cases.items():
+        err = max_abs_err(CP.quantize_depth_normal(d, dist, diff),
+                          CP.quantize_depth_normal_plain(d, dist, diff))
+        require(err == 0, f"DN {name} differs from its plain version")
+    perf["depth_normal"]["odd_cases"] = dict(max_abs_err=0, cases=list(dn_cases))
+    n0 = CP.quantize_depth_normal(deps)
     for name, q, T in (("grad_T5_480x640", q0, 5), ("grad_T8_240x320", q1, 8),
                        ("norm_T5_480x640", n0, 5),
                        ("norm_T8_240x320", n0[:, ::2, ::2].contiguous(), 8)):
@@ -2452,7 +2491,8 @@ def main() -> int:
     odd = odd_shapes(dev)
     perf["quantize_cg"]["odd_shapes"] = dict(max_abs_err=0, shapes=odd)
     perf["spread_response"]["odd_shapes"] = dict(max_abs_err=0, shapes=odd)
-    emit("kernels_vs_plain", K1=perf["quantize_cg"], K2=perf["spread_response"])
+    emit("kernels_vs_plain", K1=perf["quantize_cg"], K2=perf["spread_response"],
+         DN=perf["depth_normal"])
 
     # -- phase 2a: untiled bank, golden batch vs the JAX reference -----------
     det = Detector.read(BANK)
@@ -2504,6 +2544,7 @@ def main() -> int:
     launches = tracing.launches()
     for k in ("quantize_cg", "spread_response", "walk_scores"):  # this path's kernels
         require(launches[k] > 0, f"kernel {k} was not launched on the main path")
+    require(launches["depth_normal"] == 1, "DN did not launch once in the main-path batch")
     stats = main_m.last_pool
     require(not bool(stats.fallback), "the main-path batch fell back; it must "
             "exercise the pooled branch")
@@ -2591,7 +2632,8 @@ def main() -> int:
     off_path = ("all_slots", "detect_B1", "cascade_8x256x256", "frame_640x480",
                 "detect_captured", "accuracy_captured", "refine_round_captured",
                 "template_refinement_captured", "trainer_16x640x480",
-                "trainer_level0_u8_16x480x640", "trainer_level1_f32_16x240x320")
+                "trainer_level0_u8_16x480x640", "trainer_level1_f32_16x240x320",
+                "trainer_16x480x640")
     launches_of = {"spread_response_b1": (per_detect["spread_response"], "one detect"),
                    "raster_zbuffer": (per_detect["raster_zbuffer"], "one detect"),
                    "refine_scores": (launches7["refine_scores"], "one K5 chain")}

@@ -3,8 +3,9 @@
 
 - Extraction (cv::linemod's Modality::extractTemplate): the quantizations
   of every pyramid level come from the device (``quantize_levels``: K1's
-  variant with the squared magnitudes on the card, the plain versions on
-  the CPU; DepthNormal once at level 0, subsampled per level); the
+  variant with the squared magnitudes and DN on the card, the plain
+  versions on the CPU; DepthNormal once at level 0, subsampled per
+  level); the
   selection is host numpy: the strongest scattered gradient features
   above strong_threshold (a stable sort by magnitude, then the greedy
   scatter walk with a shrinking distance), and interior surface-normal
@@ -234,14 +235,14 @@ def quantize_levels(rgb: torch.Tensor, depth_mm: torch.Tensor | None,
     (B, H_l, W_l) u8, squared magnitude f32) of K1's trainer variant
     (level 0 on the u8 frame, each next level on the pyrDown of the last
     as integer-valued f32), norm[l] the DepthNormal bitmask, quantized
-    once at level 0 and subsampled [::2, ::2] per level (cv::linemod's
+    once at level 0 by DN and subsampled [::2, ::2] per level (cv::linemod's
     DepthNormalPyramid::pyrDown)."""
     grad, norm = [], []
     cur = rgb
     qn = None
     if params.use_depth_normal:
-        qn = F.quantize_depth_normal(depth_mm, params.depth.distance_threshold,
-                                     params.depth.difference_threshold)
+        qn = CP.quantize_depth_normal(depth_mm, params.depth.distance_threshold,
+                                      params.depth.difference_threshold)
     for l in range(params.pyramid_levels):
         if params.use_color_gradient:
             grad.append(CP.quantize_color_gradient_mag2(cur.contiguous(),

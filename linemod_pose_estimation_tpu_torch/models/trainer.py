@@ -14,11 +14,11 @@ RGB-only mode):
 Per chunk of `render_batch` views the device runs the render (kernel K4
 on the card), ``templates.quantize_levels`` (K1's variant with the
 squared magnitudes at level 0 on the u8 frames and at level 1 on their
-pyrDown as integer-valued f32; DepthNormal once at level 0), then copies
-what the host needs into pinned buffers behind an event.  The next
-chunk's launches are queued before the host waits for this one, so the
-device renders chunk i + 1 while the host extracts chunk i (two sets of
-pinned buffers, used in turn).
+pyrDown as integer-valued f32; DepthNormal by kernel DN once at level 0),
+then copies what the host needs into pinned buffers behind an event.
+The next chunk's launches are queued before the host waits for this one,
+so the device renders chunk i + 1 while the host extracts chunk i (two
+sets of pinned buffers, used in turn).
 
 The host extracts each view from a window of its full-frame arrays: the
 render rect with 2 px of margin, an even origin, reaching the frame's edge

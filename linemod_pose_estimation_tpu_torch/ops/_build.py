@@ -28,12 +28,13 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = ("quantize_cg.cu", "spread_response.cu", "walk_scores.cu",
-           "raster_zbuffer.cu", "refine_scores.cu")
+           "raster_zbuffer.cu", "refine_scores.cu", "depth_normal.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # No FMA contraction: fastAtan2's polynomial (K1) and the rasterizer's
-    # edge functions (K4) must round after every product and sum, exactly
-    # like their plain versions.  No fast-math: divisions stay IEEE.
+    # No FMA contraction: fastAtan2's polynomial (K1), the rasterizer's
+    # edge functions (K4) and the depth-normal fit (DN) must round after
+    # every product and sum, exactly like their plain versions.  No
+    # fast-math: divisions stay IEEE.
     "-fmad=false",
     "-Xcompiler", "-fPIC",
 )
@@ -53,6 +54,9 @@ _SIGNATURES = {
     # (R, oris, dys, dxs, nf, anchor_y, anchor_x, frame, out,
     #  B, C, H, W, K, F, window, words_ok, device, stream)
     "lpe_refine_scores": (_P,) * 9 + (_I,) * 9 + (_P,),
+    # (depth, lut, out, B, H, W, distance_threshold, difference_threshold,
+    #  device, stream)
+    "lpe_depth_normal": (_P,) * 3 + (_I,) * 3 + (ctypes.c_float,) * 2 + (_I, _P),
 }
 
 _lib = None

@@ -1,12 +1,15 @@
-"""Kernel K1: the fused ColorGradient quantizer (``csrc/quantize_cg.cu``).
+"""The preprocess's quantizers on the card: kernel K1, the fused
+ColorGradient quantizer (``csrc/quantize_cg.cu``), and kernel DN, the
+DepthNormal quantizer with its 5x5 median (``csrc/depth_normal.cu``).
 
-Replaces ``linemod_pose_estimation_tpu/ops/pallas_preprocess.py::
-quantize_color_gradient_pallas``.  A CPU tensor takes the plain PyTorch
-version (``ops.features.quantize_color_gradient``); a CUDA tensor
-launches the kernel or raises.  The matcher takes the bitmask alone; the
-trainer takes the kernel's compile-time variant that also writes each
+K1 replaces ``linemod_pose_estimation_tpu/ops/pallas_preprocess.py::
+quantize_color_gradient_pallas``.  The matcher takes its bitmask alone;
+the trainer takes the kernel's compile-time variant that also writes each
 pixel's squared gradient magnitude, the score by which template
-extraction selects its features.
+extraction selects its features.  DN replaces no Pallas kernel (the
+reference's DepthNormal is XLA): it fuses the plain version's chain of
+elementwise launches into one.  A CPU tensor takes the plain PyTorch
+version (``ops.features``); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -71,3 +74,38 @@ def quantize_color_gradient_mag2(rgb: torch.Tensor, weak_threshold: float = 10.0
     if rgb.device.type == "cpu":
         return F.quantize_color_gradient(rgb, weak_threshold)
     return _launch(rgb, weak_threshold, with_mag2=True)
+
+
+def quantize_depth_normal_plain(depth_mm: torch.Tensor, distance_threshold: float = 2000.0,
+                                difference_threshold: float = 50.0) -> torch.Tensor:
+    """(..., H, W) depth in mm -> (..., H, W) u8 bitmask, plain PyTorch on
+    any device."""
+    return F.quantize_depth_normal(depth_mm, distance_threshold, difference_threshold)
+
+
+def quantize_depth_normal(depth_mm: torch.Tensor, distance_threshold: float = 2000.0,
+                          difference_threshold: float = 50.0) -> torch.Tensor:
+    """(..., H, W) depth in mm (0 = invalid) -> (..., H, W) u8 quantized
+    surface-normal bitmask after its 5x5 median, bit-identical to the
+    plain version: one launch of DN for every frame of the batch.  A
+    depth of another dtype than float32 is truncated to int32 first, as
+    the plain version does."""
+    if depth_mm.device.type == "cpu":
+        return quantize_depth_normal_plain(depth_mm, distance_threshold, difference_threshold)
+    if depth_mm.dim() < 2:
+        raise ValueError(f"depth_mm: expected (..., H, W), got {tuple(depth_mm.shape)}")
+    if depth_mm.dtype != torch.float32:
+        depth_mm = depth_mm.to(torch.int32).to(torch.float32)
+    *lead, H, W = depth_mm.shape
+    depth = depth_mm.contiguous().view(-1, H, W)
+    _build.require(depth, "depth_mm", torch.float32)
+    out = torch.empty(depth.shape, dtype=torch.uint8, device=depth.device)
+    lib = _build.library()
+    err = lib.lpe_depth_normal(
+        depth.data_ptr(), F.normal_lut(depth.device).data_ptr(), out.data_ptr(),
+        *depth.shape, float(np.float32(distance_threshold)),
+        float(np.float32(difference_threshold)), *_build.device_and_stream(depth),
+    )
+    _build.check(err, "depth_normal")
+    tracing.count("launch.depth_normal")
+    return out.view(*lead, H, W)

@@ -3,8 +3,9 @@ cv::linemod engine.
 
 These are the plain versions of the preprocess: they run on any device,
 they are the CPU path, and on the card they are what the CUDA kernels K1
-(ColorGradient quantizer, ``csrc/quantize_cg.cu``) and K2 (spread +
-response, ``csrc/spread_response.cu``) are held against bit for bit.
+(ColorGradient quantizer, ``csrc/quantize_cg.cu``), K2 (spread +
+response, ``csrc/spread_response.cu``) and DN (DepthNormal quantizer and
+its median, ``csrc/depth_normal.cu``) are held against bit for bit.
 
 Every function takes leading batch dimensions and is bit-exact with its
 counterpart in ``linemod_pose_estimation_tpu/ops/features.py``: the

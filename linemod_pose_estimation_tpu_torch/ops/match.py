@@ -1806,12 +1806,12 @@ def preprocess_frames_batched(
     ColorGradient at channels 0-7, DepthNormal at 8-15).
 
     K1 quantizes ColorGradient at both levels (the level-1 input is the
-    integer-valued f32 pyrDown output) and K2 spreads + responds four
-    times per batch, writing each modality's 8 planes straight into its
-    channel slice of the stacks, so no concatenation pass follows.
-    `plain=True` takes the plain PyTorch versions on any device (CPU
-    tensors always do).  DepthNormal quantizes in plain PyTorch; level 1
-    subsamples the level-0 quantized normals (the engine's
+    integer-valued f32 pyrDown output), DN quantizes DepthNormal once at
+    level 0, and K2 spreads + responds four times per batch, writing each
+    modality's 8 planes straight into its channel slice of the stacks, so
+    no concatenation pass follows.  `plain=True` takes the plain PyTorch
+    versions on any device (CPU tensors always do).  Level 1 subsamples
+    the level-0 quantized normals (the engine's
     DepthNormalPyramid::pyrDown)."""
     from . import cuda_kernels as CK
     from . import cuda_preprocess as CP
@@ -1823,9 +1823,11 @@ def preprocess_frames_batched(
     if plain:
         quant = lambda x: F.quantize_color_gradient(x, weak_threshold)[0]
         respond = CK.spread_response_plain
+        depth_normal = F.quantize_depth_normal
     else:
         quant = lambda x: CP.quantize_color_gradient(x, weak_threshold)
         respond = CK.spread_response
+        depth_normal = CP.quantize_depth_normal
     B, H, W = rgbs.shape[:3]
     C = 16 if use_depth else 8
     with tracing.span("lpe.preprocess"):
@@ -1839,7 +1841,7 @@ def preprocess_frames_batched(
         respond(quant(rgb1), T1, R1, 0)
         if use_depth:
             with tracing.span("lpe.preprocess.depth_normal"):
-                n0 = F.quantize_depth_normal(depths_mm)
+                n0 = depth_normal(depths_mm)
             respond(n0, T0, R0, 8)
             respond(n0[:, ::2, ::2].contiguous(), T1, R1, 8)
     return R0, R1

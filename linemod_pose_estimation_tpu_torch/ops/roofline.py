@@ -111,3 +111,22 @@ def refine_scores(K: int, F: int, window: int, live_features: int, r_bytes: int)
     operands = live_features * 3 * 4 + K * 4 * 4
     return bound(operands + r_bytes + K * window * window * 4,
                  live_features * window * window)
+
+
+# DN, per pixel: the depth's truncation (2); the plane fit over 8
+# neighbours (a difference, its absolute value, the threshold compare and
+# the weight, three weighted sums of u*u, u*v, v*v and two of w*u*delta,
+# w*v*delta: 15 each = 120); det, ddx, ddy (10); the normal (4); its
+# squared length, square root, clamp, reciprocal and the zero test (9);
+# three cell coordinates (4 each) and their clamps (2 each) (18); the LUT
+# index and lookup (5); the distance and normal gate (4) and the band
+# (8); then the radix median: 8 bits x (the probe, 25 compares, 24 adds,
+# the majority test and select = 52).
+DEPTH_NORMAL_OPS_PER_PX = 2 + 120 + 10 + 4 + 9 + 18 + 5 + 4 + 8 + 8 * 52
+NORMAL_LUT_BYTES = 11 * 21 * 21
+
+
+def depth_normal(B: int, H: int, W: int) -> Bound:
+    """DN: (B, H, W) f32 depth and the NORMAL_LUT -> (B, H, W) u8."""
+    px = B * H * W
+    return bound(px * 4 + NORMAL_LUT_BYTES + px, px * DEPTH_NORMAL_OPS_PER_PX)

@@ -1,7 +1,9 @@
-"""Odd operand sets that hold kernels K3 (the walk), K4 (the z-buffer) and
-K5 (the window scores) to their plain versions off the main path's
-shapes.  chip_smoke.py and tests/test_torch_cuda.py run the same sets.
-Each is made from a fixed numpy seed and placed on the device asked for.
+"""Odd operand sets that hold kernels K3 (the walk), K4 (the z-buffer), K5
+(the window scores) and DN (the DepthNormal quantizer) to their plain
+versions off the main path's shapes.  chip_smoke.py and
+tests/test_torch_cuda.py run the same sets (the CPU tests hold DN's
+plain version to the reference on its sets).  Each is made from a fixed
+numpy seed and placed on the device asked for.
 """
 
 from __future__ import annotations
@@ -187,3 +189,75 @@ def raster_cases(device, params_path: str) -> dict[str, tuple[torch.Tensor, int,
     out["viewport_250x170"] = (cuboid([1400, 2000], 125.0, 85.0), 250, 170)
     out["viewport_1x1"] = (cuboid([2400], 0.5, 0.5), 1, 1)
     return out
+
+
+DEPTH_NORMAL_CASES = ("zeros", "odd_3x37x53", "small_2x11x11", "distance_edges", "steps",
+                      "holes", "far_65535", "noise", "noise_diff300", "int32_input")
+
+
+def _surface(rng, B: int, H: int, W: int, base: float) -> np.ndarray:
+    """Tilted, gently curved planes with fractional millimetres."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    out = []
+    for _ in range(B):
+        gx, gy, cv = rng.uniform(-6.0, 6.0), rng.uniform(-6.0, 6.0), rng.uniform(-0.05, 0.05)
+        out.append(base + gx * xx + gy * yy + cv * (xx - W / 2) * (yy - H / 2)
+                   + rng.random((H, W)))
+    return np.stack(out).astype(np.float32)
+
+
+def depth_normal_cases(device) -> dict[str, tuple[torch.Tensor, float, float]]:
+    """name -> (depth_mm (B, H, W), distance_threshold, difference_threshold)
+    for cuda_preprocess.quantize_depth_normal:
+
+    - zeros: an all-zero depth;
+    - odd_3x37x53, small_2x11x11: shapes off the kernel's 64 x 32 tile
+      and off 4 columns; 11 x 11 is smaller than the quantizer's band, so
+      the output is all zero;
+    - distance_edges: column bands at 1999.9, 2000.0 and 2000.5 mm (whole
+      millimetres 1999, 2000, 2000 after truncation) and a ramp through
+      2000 mm with fractional steps;
+    - steps: a staircase of 49, 50 and 51 mm jumps (and 49.9 and 50.9,
+      which truncation makes 49 and 50 or 50 and 51) across rows and
+      columns, against the difference threshold of 50;
+    - holes: surfaces with 3% zero pixels and a zero rectangle;
+    - far_65535: depths from 65000 to 65535 mm at a distance threshold of
+      70,000, so the products above 2^24 round;
+    - noise, noise_diff300: uniform depths in [0, 2600) mm, at difference
+      thresholds 50 and 300;
+    - int32_input: a surface given as int32 millimetres."""
+    rng = np.random.default_rng(18)
+    out = {}
+    out["zeros"] = (np.zeros((2, 40, 52), np.float32), 2000.0, 50.0)
+    out["odd_3x37x53"] = (_surface(rng, 3, 37, 53, 900.0), 2000.0, 50.0)
+    out["small_2x11x11"] = (_surface(rng, 2, 11, 11, 900.0), 2000.0, 50.0)
+
+    H, W = 48, 70
+    yy, xx = np.mgrid[0:H, 0:W]
+    d = _surface(rng, 2, H, W, 1990.0)
+    d[0, :, :20], d[0, :, 20:40], d[0, :, 40:] = 1999.9, 2000.0, 2000.5
+    d[1] = 1985.0 + 0.45 * xx + 0.1 * yy
+    out["distance_edges"] = (d, 2000.0, 50.0)
+
+    jumps = np.array([49.0, 50.0, 51.0, 49.9, 50.9], np.float32)
+    s = np.zeros((2, H, W), np.float32)
+    s[0] = 800.5 + np.cumsum(jumps[(xx // 6) % 5] * (xx % 6 == 0), axis=1)
+    s[1] = 800.5 + np.cumsum(jumps[(yy // 6) % 5] * (yy % 6 == 0), axis=0)
+    out["steps"] = (s, 2000.0, 50.0)
+
+    h = _surface(rng, 2, H, W, 1200.0)
+    h[rng.random(h.shape) < 0.03] = 0.0
+    h[1, 10:25, 30:50] = 0.0
+    out["holes"] = (h, 2000.0, 50.0)
+
+    f = np.clip(_surface(rng, 2, H, W, 65300.0), 65000.0, 65535.0)
+    f[0, :, :8] = 65535.0
+    f[1, 20:30] = 65534.9
+    out["far_65535"] = (f, 70000.0, 50.0)
+
+    n = (rng.random((2, H, W)) * 2600.0).astype(np.float32)
+    out["noise"] = (n, 2000.0, 50.0)
+    out["noise_diff300"] = (n, 2000.0, 300.0)
+    out["int32_input"] = (_surface(rng, 2, H, W, 700.0).astype(np.int32), 2000.0, 50.0)
+    assert tuple(out) == DEPTH_NORMAL_CASES
+    return {k: (torch.as_tensor(v, device=device), dt, df) for k, (v, dt, df) in out.items()}

@@ -57,7 +57,8 @@ import torch.autograd.profiler as _profiler
 counters: dict[str, int] = {}
 
 # The hand-written kernels, each counted as `launch.<kernel>` by its wrapper.
-KERNELS = ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer", "refine_scores")
+KERNELS = ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer", "refine_scores",
+           "depth_normal")
 
 
 class _Off:

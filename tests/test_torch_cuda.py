@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2 (also at B=1, the port of K2b), K3, K4, K5 and
-the kernel paths of BatchedMatcher (pooled, positions, two_axis, the
+"""The CUDA kernels K1, K2 (also at B=1, the port of K2b), K3, K4, K5, DN
+and the kernel paths of BatchedMatcher (pooled, positions, two_axis, the
 RGB-only bank), the K5 refiner, MultiClassBatchedMatcher (pooled and its
 default mode) and DetectionPipeline against their plain
 PyTorch versions, on a card; then the cascade's non-default options (the
@@ -431,6 +431,63 @@ def test_preprocess_frame_kernels_equal_plain(cuda, use_depth):
         assert torch.equal(a, b)
 
 
+def _depth_normal_input(name, dev):
+    """(depth_mm, distance_threshold, difference_threshold) of one DN case:
+    the B=32 scene batch, one trainer chunk's renders (fractional depths,
+    zbuf * 1000), or a set of utils/kernel_cases.py."""
+    if name == "scenes_b32":
+        return torch.from_numpy(S.bin_picking_batch(32, seed=5)[1]).to(dev), 2000.0, 50.0
+    if name == "trainer_renders":
+        from linemod_pose_estimation_tpu_torch.models import trainer as TTR
+        from linemod_pose_estimation_tpu_torch.models.renderer import Renderer
+        from linemod_pose_estimation_tpu_torch.utils.viewsphere import generate_views
+
+        cfg = TTR.TrainerConfig()
+        views = generate_views(cfg.view_sphere)[:cfg.render_batch]
+        r = Renderer(S.cuboid_mesh(), cfg.width, cfg.height, cfg.focal_length_x,
+                     cfg.focal_length_y, device=dev)
+        out = r.render_batch([v.R for v in views], [v.T for v in views])
+        depth = cfg.detector.depth
+        return out.depth_mm, depth.distance_threshold, depth.difference_threshold
+    return KC.depth_normal_cases(dev)[name]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["scenes_b32", "trainer_renders", *KC.DEPTH_NORMAL_CASES])
+def test_depth_normal_kernel_equals_plain(cuda, name):
+    """DN against the plain DepthNormal, bit for bit: the batch's scenes,
+    the trainer's renders, and the edge cases (thresholds crossed by
+    fractional millimetres, 49-51 mm steps, holes, depths near 65535,
+    shapes off the tile and below the band, int32 input)."""
+    depth, dist, diff = _depth_normal_input(name, cuda)
+    tracing.reset()
+    got = CP.quantize_depth_normal(depth, dist, diff)
+    assert tracing.launches()["depth_normal"] == 1
+    want = CP.quantize_depth_normal_plain(depth, dist, diff)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    if name in ("scenes_b32", "trainer_renders"):
+        assert (got > 0).float().mean() > 0.02
+
+
+@pytest.mark.requires_cuda
+def test_depth_normal_launches_once_per_preprocess_and_quantize_levels(cuda):
+    """One DN launch per preprocess_frames_batched call with depth (none
+    without, none on the plain path) and per templates.quantize_levels."""
+    from linemod_pose_estimation_tpu_torch.models import templates as TT
+
+    with np.load(CASCADE_GOLDEN) as z:
+        rgbs = torch.from_numpy(z["rgb"]).to(cuda)
+        deps = torch.from_numpy(z["depth_mm"]).to(cuda)
+    for kw, n in ((dict(use_depth=True), 1), (dict(use_depth=False), 0),
+                  (dict(use_depth=True, plain=True), 0)):
+        tracing.reset()
+        TM.preprocess_frames_batched(rgbs, deps, **kw)
+        assert tracing.launches()["depth_normal"] == n, kw
+    tracing.reset()
+    TT.quantize_levels(rgbs, deps, TT.DetectorParams(use_depth_normal=True))
+    assert tracing.launches()["depth_normal"] == 1
+
+
 @pytest.mark.requires_cuda
 def test_detect_on_the_card_launches_every_kernel(cuda):
     """DetectionPipeline.detect at full width on golden frame 0: Matches
@@ -725,7 +782,7 @@ def test_trainer_on_the_card_equals_cpu(cuda, tmp_path, use_depth):
     """train_and_write on the card (K4, K1's magnitude variant) and on the
     CPU (their plain versions) at 160x120 on the cuboid: the templates YAML
     byte-identical; R, T, K, Ori_dist and Rect equal, D within 1e-6 m; one
-    K4 and two K1 launches a chunk."""
+    K4, two K1 and, with DepthNormal, one DN launch a chunk."""
     from linemod_pose_estimation_tpu_torch.models import templates as TT
     from linemod_pose_estimation_tpu_torch.models import trainer as TTR
     from linemod_pose_estimation_tpu_torch.utils import viewsphere as TV
@@ -747,6 +804,7 @@ def test_trainer_on_the_card_equals_cpu(cuda, tmp_path, use_depth):
             chunks = -(-len(TV.generate_views(cfg.view_sphere)) // cfg.render_batch)
             assert tracing.launches()["raster_zbuffer"] == chunks
             assert tracing.launches()["quantize_cg"] == 2 * chunks
+            assert tracing.launches()["depth_normal"] == (chunks if use_depth else 0)
     assert bank.num_templates >= 8
     with open(files["cpu"][0], "rb") as a, open(files["cuda"][0], "rb") as b:
         assert a.read() == b.read()

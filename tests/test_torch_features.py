@@ -23,6 +23,7 @@ from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
 from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
 from linemod_pose_estimation_tpu_torch.ops import features as TF
 from linemod_pose_estimation_tpu_torch.ops import match as TM
+from linemod_pose_estimation_tpu_torch.utils import kernel_cases as KC
 
 
 def _renders(h):
@@ -91,6 +92,33 @@ def test_quantize_depth_normal_equals_reference(h):
         want = np.asarray(JF.quantize_depth_normal(jnp.asarray(batch[b])))
         np.testing.assert_array_equal(got[b], want)
     assert (got > 0).any()
+
+
+@pytest.fixture(scope="module")
+def depth_normal_cases():
+    return KC.depth_normal_cases("cpu")
+
+
+@pytest.mark.parametrize("name", KC.DEPTH_NORMAL_CASES)
+def test_quantize_depth_normal_edge_cases_equal_reference(depth_normal_cases, name):
+    """The plain DepthNormal (DN's twin) on the edge cases that hold DN to
+    it on the card: thresholds crossed by fractional millimetres, 49-51 mm
+    steps, holes, depths near 65535, shapes off DN's tile and below the
+    band, int32 input; exact."""
+    depth, dist, diff = depth_normal_cases[name]
+    got = TF.quantize_depth_normal(depth, dist, diff).numpy()
+    for b in range(depth.shape[0]):
+        want = np.asarray(JF.quantize_depth_normal(jnp.asarray(depth[b].numpy()), dist, diff))
+        np.testing.assert_array_equal(got[b], want)
+
+
+@pytest.mark.parametrize("name", KC.DEPTH_NORMAL_CASES)
+def test_depth_normal_wrapper_on_cpu_equals_plain(depth_normal_cases, name):
+    """DN's wrapper takes the plain version for a CPU tensor."""
+    depth, dist, diff = depth_normal_cases[name]
+    got = CP.quantize_depth_normal(depth, dist, diff)
+    assert got.dtype == torch.uint8 and got.shape == depth.shape
+    assert torch.equal(got, CP.quantize_depth_normal_plain(depth, dist, diff))
 
 
 @pytest.mark.parametrize("T", [5, 8])

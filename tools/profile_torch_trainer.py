@@ -109,7 +109,7 @@ def main() -> int:
             "K1 level 0 (u8, with mag2)": lambda: CP.quantize_color_gradient_mag2(out.rgb),
             "pyrDown": lambda: [F.pyr_down(out.rgb[..., c]) for c in range(3)],
             "K1 level 1 (f32, with mag2)": lambda: CP.quantize_color_gradient_mag2(rgb1),
-            "DepthNormal level 0": lambda: F.quantize_depth_normal(
+            "DN level 0": lambda: CP.quantize_depth_normal(
                 out.depth_mm, rgbd.depth.distance_threshold, rgbd.depth.difference_threshold),
             "D2H into pinned buffers": d2h,
         }
