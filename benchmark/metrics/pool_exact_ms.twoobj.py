@@ -1,0 +1,9 @@
+"""Pooled matcher over the merged bank: device ms per batch of the exact
+GEMM over the pooled survivors and the per-class selects
+(`lpe.pool.exact`); 0.0 where every batch overflowed the coarse pool."""
+
+from benchmark.harness.program import span_device_ms
+
+
+def read(ctx):
+    return span_device_ms(ctx, ["lpe.pool.exact"], "lpe.batch", ctx.steps)

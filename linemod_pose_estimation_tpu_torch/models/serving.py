@@ -326,6 +326,19 @@ class MultiClassBatchedMatcher:
         self.slices = tuple(zip(bases, ends))
         self.weights = M.build_bank_weights(self.feats1, C, self.T1, self.Kc1,
                                             self.fine_g)
+        # The classes' report gates, on the device once: a host number
+        # copied per batch would wait for the stream each time.
+        self._gates = torch.tensor(self.thresholds, dtype=torch.float32, device=self.device)
+        self._columns: dict[tuple[int, int], tuple] = {}
+
+    def _class_columns(self, Hc: int, Wc: int) -> tuple:
+        """(vpos (P, N), [(vpos_c, select threshold_c)] per class) of an
+        Hc x Wc level-1 grid, built at its first batch."""
+        if (Hc, Wc) not in self._columns:
+            vpos = M.position_validity_flat(self.feats1.size, self.T1, Hc, Wc)
+            sel_thrs = [t - 5.0 for t in self.thresholds]
+            self._columns[(Hc, Wc)] = (vpos, M._class_columns(vpos, self.slices, sel_thrs))
+        return self._columns[(Hc, Wc)]
 
     def candidates(self, rgbs, depths_mm=None):
         """Preprocess + the pruned pass over the merged bank: (R0, [CoarseMatches
@@ -336,21 +349,24 @@ class MultiClassBatchedMatcher:
             rgbs, depths_mm, T0=self.T0, T1=T1, use_depth=self.use_depth,
             weak_threshold=self.weak, plain=self.plain)
         Hc, Wc = R1.shape[2] // T1, R1.shape[3] // T1
-        vpos = M.position_validity_flat(self.feats1.size, T1, Hc, Wc)
+        vpos, classes = self._class_columns(Hc, Wc)
         w = self.weights
-        sel_thrs = [t - 5.0 for t in self.thresholds]
+        sel_thrs = [thr for _, thr in classes]
+        tracing.count("multiclass.batch")
+        tracing.count("multiclass.classes", len(classes))
         if self.prune_mode == "pooled":
             cands, _, self.last_pool = M.match_pooled_multiclass(
                 R1, w.W_gemm, w.W_cell, w.W_fine, self.feats1.count, vpos,
                 self.slices, sel_thrs, T1, self.Kc1, self.fine_g,
                 self.pool_coarse, self.pool_fine, self.top_k, Wc,
-                r_cap=self.sel_row_cap,
+                r_cap=self.sel_row_cap, classes=classes,
             )
         else:
             cands, self.last_prune = M.match_coarse_pruned_multiclass(
                 R1, w.W_gemm, w.W_cell, w.W_fine, self.feats1.count, vpos,
                 self.slices, sel_thrs, T1, self.Kc1, self.prune_pos_cap,
                 self.top_k, Wc, g=self.fine_g, m2_cap=self.fine_pos_cap,
+                classes=classes,
             )
         return R0, cands
 
@@ -363,14 +379,10 @@ class MultiClassBatchedMatcher:
             R0, self.feats0, cat, self.T1, min(self.thresholds), E0=self.E0,
             fine_T=self.T0, n_valid=n_valid, plain=self.plain,
         )
-        out = {}
-        for cid, mc, thr in zip(self.class_ids,
-                                M.split_matches_by_class(m, self.slices, self.top_k),
-                                self.thresholds):
-            ok = mc.valid & (mc.similarity >= torch.tensor(
-                thr, dtype=torch.float32, device=self.device))
-            out[cid] = mc._replace(valid=ok)
-        return out
+        with tracing.span("lpe.split"):
+            split = M.split_matches_by_class(m, self.slices, self.top_k)
+            return {cid: mc._replace(valid=mc.valid & (mc.similarity >= self._gates[i]))
+                    for i, (cid, mc) in enumerate(zip(self.class_ids, split))}
 
     def match_batch(self, rgbs, depths_mm=None) -> dict[str, M.Matches]:
         """(B, H, W, 3) uint8 [+ (B, H, W) mm] -> {class_id: Matches} with

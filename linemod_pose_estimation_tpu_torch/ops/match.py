@@ -1341,14 +1341,17 @@ def match_pooled_multiclass(
     top_k: int,
     Wc: int,
     r_cap: int = 128,
+    classes: list | None = None,
 ) -> tuple[list[CoarseMatches], list[torch.Tensor], PooledStats]:
     """The pooled matcher over a MERGED bank: one margin pass and one fine
     re-test, both at min(thresholds) (a survivor superset for every
     class), one exact pooled GEMM over the merged template axis, then one
     select per class over its own columns (`class_slices`) at its own
     threshold.  Fallbacks as in the single-class path, host branches as
-    there.  Returns ([CoarseMatches (B, top_k) per class], [n_valid (B,)
-    per class], PooledStats)."""
+    there.  `classes` is `_class_columns`' result for these operands,
+    built once by a caller that steps many batches (None: built here).
+    Returns ([CoarseMatches (B, top_k) per class], [n_valid (B,) per
+    class], PooledStats)."""
     if T % g != 0:
         raise ValueError(f"g={g} must divide T={T}")
     thr_min = min(thresholds)
@@ -1361,7 +1364,8 @@ def match_pooled_multiclass(
             # argument there): (thr - 1e-3) * 0.04 in double, rounded to f32 once.
             scale = _device_scalar((thr_min - 1e-3) * 0.04, torch.float32, Rb.device)
             t_int = torch.ceil(scale * total_features.to(torch.float32) - 1e-4).to(torch.int32)
-            classes = _class_columns(vpos_flat, class_slices, thresholds)
+            if classes is None:
+                classes = _class_columns(vpos_flat, class_slices, thresholds)
         return _pooled_selects(Rb, pp, t_int, W_gemm, W_fine, total_features,
                                vpos_flat, classes, T, Kc, g, pool1, pool2, top_k,
                                Wc, r_cap)
@@ -1391,14 +1395,15 @@ def match_coarse_pruned_multiclass(
     Wc: int,
     g: int | None = 4,
     m2_cap: int | None = None,
+    classes: list | None = None,
 ) -> tuple[list[CoarseMatches], PrunePlan]:
     """match_coarse_pruned_fine_with_fallback over a MERGED bank: one
     coarse prune and one fine re-test, both at min(thresholds) (a survivor
     superset for every class), one survivor GEMM over the merged template
     axis, then one select per class over its own columns at its own
     threshold.  Fallbacks as in the single-class path.  `W_fine=None` or
-    `g=None` skips the fine stage.  Returns ([CoarseMatches (B, top_k) per
-    class], PrunePlan)."""
+    `g=None` skips the fine stage; `classes` as in match_pooled_multiclass.
+    Returns ([CoarseMatches (B, top_k) per class], PrunePlan)."""
     thr_min = min(thresholds)
     if g is not None and T % g != 0:
         raise ValueError(f"g={g} must divide T={T} (pass g=None to disable "
@@ -1406,9 +1411,10 @@ def match_coarse_pruned_multiclass(
     pp = prune_positions_batched(
         Rb, W_cell, total_features, vpos_flat, thr_min, T, Kc, m_cap)
     fine = g is not None and W_fine is not None
+    if classes is None:
+        classes = _class_columns(vpos_flat, class_slices, thresholds)
     cands, _ = _positions_selects(
-        Rb, pp, W_gemm, W_fine, total_features, vpos_flat,
-        _class_columns(vpos_flat, class_slices, thresholds), thr_min, T, Kc,
+        Rb, pp, W_gemm, W_fine, total_features, vpos_flat, classes, thr_min, T, Kc,
         g if fine else None,
         _default_cap(m2_cap, m_cap, "m2_cap") if fine else None, top_k, Wc)
     return cands, pp
@@ -1421,11 +1427,12 @@ def merge_candidates_sorted(
     the valid candidates form ONE similarity-sorted prefix (the walk's
     skip needs it); ties keep the concatenated order, as the reference's
     top_k.  Returns (merged (B, sum K), n_valid (B,))."""
-    cat = CoarseMatches(*(torch.cat(a, dim=1) for a in zip(*cands)))
-    key = torch.where(cat.valid, cat.similarity, float("-inf"))
-    _, idx = _topk_first_index(key, key.shape[1])
-    merged = CoarseMatches(*(torch.gather(a, 1, idx) for a in cat))
-    return merged, cat.valid.sum(dim=1).to(torch.int32)
+    with tracing.span("lpe.merge"):
+        cat = CoarseMatches(*(torch.cat(a, dim=1) for a in zip(*cands)))
+        key = torch.where(cat.valid, cat.similarity, float("-inf"))
+        _, idx = _topk_first_index(key, key.shape[1])
+        merged = CoarseMatches(*(torch.gather(a, 1, idx) for a in cat))
+        return merged, cat.valid.sum(dim=1).to(torch.int32)
 
 
 def split_matches_by_class(

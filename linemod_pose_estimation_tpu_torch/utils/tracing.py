@@ -25,7 +25,9 @@ thread):
       lpe.pool.fine           the g x g bound to the fine compaction
       lpe.pool.exact          the exact pooled GEMM and the selects
       lpe.pool.fallback       the exhaustive GEMM and its selects
+    lpe.merge                 the merged matcher: its classes' candidates in one sorted list
     lpe.walk                  walk plan, K3, argmax
+    lpe.split                 the merged matcher: the walked matches per class, re-gated
   lpe.train                   one train_from_stl call
     lpe.trainer.dispatch      queueing a chunk's render and quantizations
     lpe.trainer.wait          waiting for a chunk on the host
@@ -42,6 +44,8 @@ Counters:
   pool.coarse_overflow  the coarse pool overflowed
   pool.fine_overflow    the fine pool overflowed
   pool.select_overflow  a select range overflowed, the coarse pool did not
+  multiclass.batch      steps through MultiClassBatchedMatcher
+  multiclass.classes    its per-class selects: one a class a step
   extract.views         views that reach templates.extract_template
   extract.candidates    candidates that enter the scattered selection
   launch.<kernel>       launches of each hand-written kernel

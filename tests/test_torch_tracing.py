@@ -54,7 +54,9 @@ TRAIN_PARENT = {
     "lpe.extract.grad": "lpe.trainer.extract",
     "lpe.extract.norm": "lpe.trainer.extract",
 }
-PARENT = {**BATCH_PARENT, **TRAIN_PARENT}
+# the merged matcher's own steps around its walk
+MULTICLASS_PARENT = {"lpe.merge": "lpe.batch", "lpe.split": "lpe.batch"}
+PARENT = {**BATCH_PARENT, **MULTICLASS_PARENT, **TRAIN_PARENT}
 # the pool's tiers and flag reads, which follow one another
 POOL_PARTS = ("lpe.pool.coarse", "lpe.sync", "lpe.pool.fine", "lpe.pool.exact",
               "lpe.pool.fallback")
@@ -186,6 +188,7 @@ def test_traced_spans_nest_in_their_parents(kind, sub_detector, crops, stl, tmp_
         want = set(BATCH_PARENT) | {"lpe.batch"}
         if kind == "multiclass":
             want.remove("lpe.pool.fallback")  # one batch, no fallback
+            want |= set(MULTICLASS_PARENT)
         assert set(spans) == want
         steps = 2 if kind == "match_batch" else 1
         assert len(spans["lpe.batch"]) == len(spans["lpe.pool"]) == steps
