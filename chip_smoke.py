@@ -28,6 +28,11 @@ line each:
       that run (DN exactly once), PooledStats, found rate, batch time;
   2c. the same batch with pool_coarse forced tiny: the exhaustive fallback
       runs and the Matches equal 2b's;
+  2d. XS (the exact coarse scorer) against its plain twin and the int8
+      GEMM route it replaced, bitwise, on 2b's level-1 responses and
+      tiled bank: every cell of the batch (the fallback's call) and a
+      frame-major 1152-row list (the exact tier's 36 rows a frame), timed
+      beside its bound, the plain twin and that route (library_ms);
   3. K3 against its plain version on 2b's candidate sets, bitwise, timed
      with its bound; then on odd plans (utils/kernel_cases.py: frames
      with n_valid = 0, walked slots with every feature dead, F = 37 and
@@ -203,9 +208,10 @@ line each:
 
 Then a kernels summary line (per kernel: launches on its path, the
 summed time, plain time and bound of those launches at their shapes,
-what bounds it, the share of the bound, and library_ms null: no single
-PyTorch call computes any of these functions; the other timed shapes
-are rows of its `shapes`), the card line, and last
+what bounds it, the share of the bound, and library_ms: for XS the int8
+GEMM route it replaced, for the others null, as no single PyTorch call
+computes them; the other timed shapes are rows of its `shapes`), the card
+line, and last
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing the last line.  It needs CUDA: without a
 card it exits 2 before doing anything.
@@ -215,9 +221,10 @@ card it exits 2 before doing anything.
     python3 chip_smoke.py --only trainer
     python3 chip_smoke.py --only aux
     python3 chip_smoke.py --only parallel
+    python3 chip_smoke.py --only exact
 
-build the kernels and run phase 10, 11, 12, 13 or 14 alone (a quick check
-on a card); they print no summary and no last line.
+build the kernels and run phase 10, 11, 12, 13, 14 or 2d alone (a quick
+check on a card); they print no summary and no last line.
 """
 
 from __future__ import annotations
@@ -307,7 +314,13 @@ KERNELS = {
     "depth_normal": ("DN", "linemod_pose_estimation_tpu_torch/csrc/depth_normal.cu",
                      "none (the reference's DepthNormal is XLA: "
                      "linemod_pose_estimation_tpu/ops/features.py:404)"),
+    "exact_scores": ("XS", "linemod_pose_estimation_tpu_torch/csrc/exact_scores.cu",
+                     "none (the reference's exact coarse scores are an XLA dot_general "
+                     "over one-hot weights: linemod_pose_estimation_tpu/ops/match.py:274)"),
 }
+# XS's rows in phase 2d: a frame-major list of 36 rows a frame (the exact
+# tier's fine pool at B=32), drawn from this seed.
+EXACT_POOL_ROWS, EXACT_POOL_SEED = 1152, 21
 
 
 def emit(phase: str, **kw) -> None:
@@ -446,6 +459,66 @@ def depth_normal_vs_plain(depth, dist: float, diff: float, name: str) -> dict:
         plain_ms=cuda_ms(lambda: CP.quantize_depth_normal_plain(depth, dist, diff), 3),
         max_abs_err=err, set_frac=float((got > 0).float().mean()),
         bound=RL.depth_normal(*depth.shape)._asdict())
+
+
+def exact_scores_vs_plain(R1, W, T: int, Kc: int, frame=None, pos=None) -> dict:
+    """XS against its plain twin and the int8 GEMM route it replaced (the
+    im2col or the survivor gather, then torch._int_mm: library_ms), bitwise,
+    on every cell of R1 (frame and pos None) or on the rows (frame, pos);
+    all three timed, with the launch's bound."""
+    from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
+    from linemod_pose_estimation_tpu_torch.ops import match as M
+    from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+
+    if frame is None:
+        route = lambda: M.int8_mm(M._gemm_patches(R1, T, Kc), W)
+    else:
+        route = lambda: M.int8_mm(M._survivor_patches(R1, frame, pos, T, Kc), W)
+    kern = lambda: CK.exact_scores(R1, W.table, T, Kc, frame, pos)
+    plain = lambda: CK.exact_scores_plain(R1, W.table, T, Kc, frame, pos)
+    got = kern()
+    err = max_abs_err(got, plain())
+    require(err == 0, f"XS differs from its plain twin on {got.shape[0]} rows")
+    require(torch.equal(got, route()), f"XS differs from the int8 GEMM on {got.shape[0]} rows")
+    B, C, H, Wd = R1.shape
+    rows, (N, F) = got.shape[0], W.table.shape
+    crop = B * C * (H // T * T) * (Wd // T * T)
+    planes = crop if frame is None else min(crop, rows * Kc * Kc * C * T * T)
+    del got
+    return dict(**kernel_times(kern, "exact_", reps=5 if frame is None else 20),
+                plain_ms=cuda_ms(plain, 1), library_ms=cuda_ms(route, 3), max_abs_err=err,
+                rows=rows, templates=N,
+                bound=RL.exact_scores(rows, N, F, int((W.table >= 0).sum()), planes)._asdict())
+
+
+def exact_phase(dev: torch.device, perf: dict, matcher=None, rgbs=None, deps=None) -> None:
+    """Phase 2d: XS on the tiled batch's level-1 responses and bank (built
+    here when phase 2b's matcher and frames are not given)."""
+    from linemod_pose_estimation_tpu_torch.models.detector import Detector
+    from linemod_pose_estimation_tpu_torch.models.serving import BatchedMatcher, slice_settings
+    from linemod_pose_estimation_tpu_torch.ops import match as M
+    from linemod_pose_estimation_tpu_torch.utils import scenes as S
+
+    if matcher is None:
+        det = Detector.read(BANK)
+        cid = det.class_ids[0]
+        bank = det.bank(cid)
+        det.attach_bank(bank.tile(-(-10240 // bank.num_templates), TILE_TO))
+        matcher = BatchedMatcher(det, cid, THRESHOLD, B_MAIN, device=dev,
+                                 **slice_settings(B_MAIN))
+        rgbs_np, deps_np, _ = S.bin_picking_batch(B_MAIN, seed=3)
+        rgbs, deps = torch.from_numpy(rgbs_np).to(dev), torch.from_numpy(deps_np).to(dev)
+    _, R1 = M.preprocess_frames_batched(rgbs, deps, use_depth=True)
+    W, T, Kc = matcher.weights.W_gemm, matcher.T1, matcher.Kc1
+    B, P = R1.shape[0], (R1.shape[2] // T) * (R1.shape[3] // T)
+    g = torch.Generator().manual_seed(EXACT_POOL_SEED)
+    frame = torch.sort(torch.randint(0, B, (EXACT_POOL_ROWS,), generator=g)).values.to(dev)
+    pos = torch.randint(0, P, (EXACT_POOL_ROWS,), generator=g).to(dev)
+    n = W.table.shape[0]
+    perf["exact_scores"][f"every_cell_{B}x{n}"] = exact_scores_vs_plain(R1, W, T, Kc)
+    perf["exact_scores"][f"pool_{EXACT_POOL_ROWS}x{n}"] = exact_scores_vs_plain(
+        R1, W, T, Kc, frame, pos)
+    emit("exact_vs_plain", XS=perf["exact_scores"])
 
 
 def raster_times(coefs, w: int, h: int) -> dict:
@@ -2087,7 +2160,7 @@ def _parallel_gloo_rank(rank: int, world: int, inputs: str, out_dir: str) -> Non
     R0s = R0[0, :, b * h0:(b + 1) * h0].contiguous()
     R1s = R1[0, :, b * h1:(b + 1) * h1].contiguous()
     f1, f0 = g1.to(dev), g0.to(dev)
-    W1 = M.MatmulWeight.from_kn(M.build_gemm_weights(f1, C, T1, Kc1))
+    W1 = M.gemm_weight(f1, C, T1, Kc1)
     for plain in (False, True):
         row = SM.make_row_sharded_matcher(mesh, "bank", T1, Kc1, p["top_k"], THRESHOLD,
                                           T0=T0, E0=E0, plain=plain)
@@ -2289,8 +2362,13 @@ def parallel_phase(dev: torch.device) -> dict:
         for key in ("pool", "pos", "row", "ring", "b32"):
             require(_same(res[key]["m"], res[key + "_plain"]["m"]),
                     f"phase 14 rank {r}: {key} kernel path != plain path")
-            require(all(v == 0 for v in res[key + "_plain"]["launches"].values()),
+            # `plain` selects the plain K1-K3; the exact scores are XS in both
+            # paths (phase 2d holds XS to its plain twin), the same calls.
+            plain = res[key + "_plain"]["launches"]
+            require(all(v == 0 for k, v in plain.items() if k != "exact_scores"),
                     f"phase 14 rank {r}: {key}'s plain path launched a kernel")
+            require(plain["exact_scores"] == res[key]["launches"]["exact_scores"] > 0,
+                    f"phase 14 rank {r}: {key}'s paths scored through XS unequally")
         require(res["b32"]["met"] == res["b32_plain"]["met"],
                 f"phase 14 rank {r}: B=32 metrics kernel != plain")
         for key in ("pool", "pos", "ring", "b32"):
@@ -2439,6 +2517,10 @@ def main() -> int:
         parallel_phase(dev)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "exact"]:
+        exact_phase(dev, perf)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2545,6 +2627,7 @@ def main() -> int:
     for k in ("quantize_cg", "spread_response", "walk_scores"):  # this path's kernels
         require(launches[k] > 0, f"kernel {k} was not launched on the main path")
     require(launches["depth_normal"] == 1, "DN did not launch once in the main-path batch")
+    require(launches["exact_scores"] == 1, "XS did not launch once in the main-path batch")
     stats = main_m.last_pool
     require(not bool(stats.fallback), "the main-path batch fell back; it must "
             "exercise the pooled branch")
@@ -2586,6 +2669,9 @@ def main() -> int:
     emit("forced_fallback", fallback=True, equal_valid_candidates=True,
          n_valid=nv_fb.tolist(), equal_valid_matches=True, batch_ms=fb_s * 1e3)
 
+    # -- phase 2d: XS vs its plain twin and the int8 GEMM route --------------
+    exact_phase(dev, perf, main_m, rgbs, deps)
+
     # -- phase 3: K3 vs plain on the tiled batch's candidate sets ------------
     R0, cands, n_valid = main_m.candidates(rgbs, deps)
     for name, nv in (("valid_prefix", n_valid),
@@ -2622,7 +2708,7 @@ def main() -> int:
     launches14 = parallel_phase(dev)
 
     # -- summary -------------------------------------------------------------
-    # launches: of one B=32 pooled batch (phase 2b) for K1-K3, of one detect
+    # launches: of one B=32 pooled batch (phase 2b) for K1-K3 and XS, of one detect
     # (phase 6) for K2b and K4, of one K5 chain (phase 7) for K5.  ms, plain
     # and bound: summed over the shapes of those launches; the other timed
     # shapes (K3 over all slots and at detect's B=1, K4 at 8 poses, on the
@@ -2633,7 +2719,7 @@ def main() -> int:
                 "detect_captured", "accuracy_captured", "refine_round_captured",
                 "template_refinement_captured", "trainer_16x640x480",
                 "trainer_level0_u8_16x480x640", "trainer_level1_f32_16x240x320",
-                "trainer_16x480x640")
+                "trainer_16x480x640", f"every_cell_{B_MAIN}x{TILE_TO}")
     launches_of = {"spread_response_b1": (per_detect["spread_response"], "one detect"),
                    "raster_zbuffer": (per_detect["raster_zbuffer"], "one detect"),
                    "refine_scores": (launches7["refine_scores"], "one K5 chain")}
@@ -2646,14 +2732,17 @@ def main() -> int:
         ms = sum(shapes[s]["ms"] for s in main_shapes)
         bound_ms = sum(shapes[s]["bound"]["ms"] for s in main_shapes)
         by = max(main_shapes, key=lambda s: shapes[s]["bound"]["ms"])
+        library = [shapes[s].get("library_ms") for s in main_shapes]
         summary.append(dict(
             name=f"{name} {key}", route="cuda", source=src, replaces=replaces,
             launches=n, launches_per=per,
             max_abs_err=max(v["max_abs_err"] for v in shapes.values()),
             ms=ms, plain_ms=sum(shapes[s]["plain_ms"] for s in main_shapes),
             bound_ms=bound_ms, bound_by=shapes[by]["bound"]["by"],
-            share_of_bound=bound_ms / ms, library_ms=None,
-            library_note="no single PyTorch call computes it",
+            share_of_bound=bound_ms / ms,
+            library_ms=None if None in library else sum(library),
+            library_note=("no single PyTorch call computes it" if None in library else
+                          "the int8 GEMM route it replaced: the patch rows, torch._int_mm"),
             launches_per_detect=per_detect.get(key.removesuffix("_b1")),
             launches_per_positions_batch=launches9.get(key),
             launches_per_accuracy_detect=launches10.get(key.removesuffix("_b1")),

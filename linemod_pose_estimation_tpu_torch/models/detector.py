@@ -141,9 +141,9 @@ class Detector:
         once."""
         if class_id not in self._gemm:
             bank = self.bank(class_id)
-            W = M.build_gemm_weights(self._bank_feats(class_id)[0], 8 * bank.num_modalities,
-                                     self.params.t_pyramid[1], bank.max_cell_extent(1))
-            self._gemm[class_id] = M.MatmulWeight.from_kn(W)
+            self._gemm[class_id] = M.gemm_weight(
+                self._bank_feats(class_id)[0], 8 * bank.num_modalities,
+                self.params.t_pyramid[1], bank.max_cell_extent(1))
         return self._gemm[class_id]
 
     def match_raw(self, rgb, threshold: float, depth_mm=None,

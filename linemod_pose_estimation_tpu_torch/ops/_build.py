@@ -28,7 +28,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = ("quantize_cg.cu", "spread_response.cu", "walk_scores.cu",
-           "raster_zbuffer.cu", "refine_scores.cu", "depth_normal.cu")
+           "raster_zbuffer.cu", "refine_scores.cu", "depth_normal.cu",
+           "exact_scores.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # No FMA contraction: fastAtan2's polynomial (K1), the rasterizer's
@@ -57,6 +58,9 @@ _SIGNATURES = {
     # (depth, lut, out, B, H, W, distance_threshold, difference_threshold,
     #  device, stream)
     "lpe_depth_normal": (_P,) * 3 + (_I,) * 3 + (ctypes.c_float,) * 2 + (_I, _P),
+    # (planes, frame or NULL, pos or NULL, table, out,
+    #  B, M, L, Hc, Wc, Kc, N, F, Hp, XS, BH, LS, device, stream)
+    "lpe_exact_scores": (_P,) * 5 + (_I,) * 13 + (_P,),
 }
 
 _lib = None

@@ -1,21 +1,27 @@
 """Kernels K2 (spread + response maps, ``csrc/spread_response.cu``), K3
-(cv::linemod's 16 x 16 local walk, ``csrc/walk_scores.cu``) and K5 (dense
-window scores around coarse candidates, ``csrc/refine_scores.cu``), each
-with its plain PyTorch version beside it.
+(cv::linemod's 16 x 16 local walk, ``csrc/walk_scores.cu``), K5 (dense
+window scores around coarse candidates, ``csrc/refine_scores.cu``) and XS
+(the exact coarse scorer, ``csrc/exact_scores.cu``), each with its plain
+PyTorch version beside it.
 
 K2 replaces ``linemod_pose_estimation_tpu/ops/pallas_kernels.py::
 spread_response_batched``; K3 replaces ``walk_scores_pallas``; K5
-replaces ``refine_scores_pallas``.  A CPU tensor takes the plain version;
-a CUDA tensor launches the kernel or raises.
+replaces ``refine_scores_pallas``.  XS replaces no Pallas kernel: the
+reference's exact coarse scores are an XLA dot_general over one-hot
+weights.  A CPU tensor takes the plain version; a CUDA tensor launches
+the kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..utils import tracing
 from . import _build
 from . import features as F
+from . import match as M
 
 WIN = 16  # OpenCV's fixed 16 x 16 local similarity map
 
@@ -274,4 +280,171 @@ def refine_scores(R, oris, dys, dxs, nf, anchor_y, anchor_x,
     )
     _build.check(err, "refine_scores")
     tracing.count("launch.refine_scores")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# XS: the exact coarse scorer
+# ---------------------------------------------------------------------------
+
+XS_ROW_CELLS = 20  # cells a lane of the every-cell geometry holds along a row
+XS_STAGE_BYTES = 115_200  # a stage buffer; two of them fit the card's 227 KB
+
+
+class ExactGeometry(NamedTuple):
+    """The every-cell launch's band geometry: BH cell rows a block, lane-
+    major planes of Hp rows of XS bytes, LS lanes a shared-memory stage."""
+
+    BH: int
+    Hp: int
+    XS: int
+    LS: int
+
+
+def exact_geometry(Hc: int, Wc: int, Kc: int, L: int) -> ExactGeometry:
+    """A warp holds BH cell rows of ceil(Wc / 20) lanes each; the row pitch
+    XS (a multiple of 8 bytes, for 8-byte copies) is the shortest that
+    holds a lane's 6-word read at any cell shift and, where one exists
+    within 32 words, puts the 32 lanes' words in 32 banks."""
+    segs = -(-Wc // XS_ROW_CELLS)
+    if segs > 32:
+        raise ValueError(f"Wc={Wc}: the exact scorer takes at most {32 * XS_ROW_CELLS} "
+                         "cells a row")
+    nbands = -(-Hc // (32 // segs))
+    BH = -(-Hc // nbands)
+    words = (Kc - 1) // 4 + segs * XS_ROW_CELLS // 4 + 1
+    words += words % 2
+    lanes = [(r, s) for r in range(BH) for s in range(segs)]
+    for w in range(words, words + 32, 2):
+        if len({(r * w + s * XS_ROW_CELLS // 4) % 32 for r, s in lanes}) == len(lanes):
+            words = w
+            break
+    XS = 4 * words
+    BHs = BH + Kc - 1
+    LS = min(L, XS_STAGE_BYTES // (BHs * XS))
+    if LS < 1:
+        raise ValueError(f"Kc={Kc}, Wc={Wc}: a lane's band does not fit a stage")
+    return ExactGeometry(BH, nbands * BH + Kc - 1, XS, LS)
+
+
+def exact_planes(Rb: torch.Tensor, T: int, Kc: int, g: ExactGeometry) -> torch.Tensor:
+    """(B, C, H, W) responses -> lane-major planes (B, C*T*T, g.Hp, g.XS)
+    u8: plane c*T*T + ry*T + rx holds R[c, i*T + ry, j*T + rx] at (i, j),
+    zero past (H // T, W // T)."""
+    B, C, H, W = Rb.shape
+    Hc, Wc = H // T, W // T
+    out = torch.zeros((B, C, T, T, g.Hp, g.XS), dtype=torch.uint8, device=Rb.device)
+    out[..., :Hc, :Wc] = (Rb[:, :, :Hc * T, :Wc * T].reshape(B, C, Hc, T, Wc, T)
+                          .permute(0, 1, 3, 5, 2, 4))
+    return out.view(B, C * T * T, g.Hp, g.XS)
+
+
+def _exact_rows(Rb: torch.Tensor, T: int, frame, pos):
+    """(frame, pos) int64 of the rows asked for: every cell of every frame
+    when both are None."""
+    B, _, H, W = Rb.shape
+    if (frame is None) != (pos is None):
+        raise ValueError("frame and pos: give both or neither")
+    if frame is None:
+        P = (H // T) * (W // T)
+        dev = Rb.device
+        return (torch.arange(B, device=dev).repeat_interleave(P),
+                torch.arange(P, device=dev).repeat(B))
+    return frame.reshape(-1).long(), pos.reshape(-1).long()
+
+
+# (row, table slot) pairs exact_scores_plain gathers at a time
+XS_PLAIN_CHUNK = 1 << 24
+
+
+def exact_scores_plain(Rb: torch.Tensor, table: torch.Tensor, T: int, Kc: int,
+                       frame: torch.Tensor | None = None, pos: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """Raw exact coarse scores (M, N) int32: row m (frame[m], cell pos[m]
+    = py * Wc + px; every cell of every frame when both are None) and
+    template n sum, over n's live table entries e = ((qy*Kc + qx)*C + c)
+    *T*T + ry*T + rx, the response R[frame, c, (py + qy)*T + ry, (px + qx)
+    *T + rx], zero past the frame's Hc*T x Wc*T crop."""
+    B, C, H, W = Rb.shape
+    Hc, Wc = H // T, W // T
+    L = C * T * T
+    dev = Rb.device
+    frame, pos = _exact_rows(Rb, T, frame, pos)
+    Hpx, Wpx = (Hc + Kc) * T, (Wc + Kc) * T
+    Rp = torch.zeros((B, C, Hpx, Wpx), dtype=torch.int32, device=dev)
+    Rp[:, :, :Hc * T, :Wc * T] = Rb[:, :, :Hc * T, :Wc * T]
+    Rp = Rp.reshape(-1)
+    live = table >= 0
+    e = table.clamp(min=0).long()
+    lane, cell = e % L, e // L
+    qy, qx = cell // Kc, cell % Kc
+    c, ry, rx = lane // (T * T), lane // T % T, lane % T
+    feat = (c * Hpx + qy * T + ry) * Wpx + qx * T + rx  # (N, F)
+    base = (frame * C * Hpx + torch.div(pos, Wc, rounding_mode="floor") * T) * Wpx \
+        + pos % Wc * T  # (M,)
+    N, Fw = table.shape
+    out = torch.empty((base.shape[0], N), dtype=torch.int32, device=dev)
+    step = max(1, XS_PLAIN_CHUNK // max(1, N * Fw))
+    for m0 in range(0, base.shape[0], step):
+        v = Rp[base[m0:m0 + step, None, None] + feat[None]]
+        out[m0:m0 + step] = torch.where(live, v, 0).sum(dim=2, dtype=torch.int32)
+    return out
+
+
+def exact_scores(Rb: torch.Tensor, table: torch.Tensor, T: int, Kc: int,
+                 frame: torch.Tensor | None = None, pos: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """XS: the exact coarse scores of exact_scores_plain, (M, N) int32,
+    bit for bit (and so the one-hot int8 GEMM's rows), as a gather-sum
+    straight from the linearized planes.  With frame and pos None it scores
+    every cell of every frame (M = B * Hc * Wc, the exhaustive scorer) from
+    lane-major planes in bands of cell rows; with a row list (frame, pos)
+    (M,) it scores those rows from lanes-last planes, two rows a block.
+    Operands: Rb (B, C, H, W) u8 responses in [0, 4] (the response LUT's
+    range: the every-cell launch sums 63 features in a byte); table (N, F)
+    int32, the GEMM row of each live feature or -1 (F <= 256), every entry
+    below Kc*Kc*C*T*T."""
+    if Rb.device.type == "cpu":
+        return exact_scores_plain(Rb, table, T, Kc, frame, pos)
+    if Rb.dim() != 4:
+        raise ValueError(f"Rb: expected (B, C, H, W), got {tuple(Rb.shape)}")
+    B, C, H, W = Rb.shape
+    Hc, Wc = H // T, W // T
+    L = C * T * T
+    N, Fw = table.shape
+    if Fw > 256:
+        raise ValueError(f"table: {Fw} slots a template; the kernel takes at most 256")
+    if Kc * Kc * L >= 1 << 31:
+        raise ValueError(f"Kc={Kc}, C*T*T={L}: a GEMM row index past int32")
+    _build.require(Rb, "Rb", torch.uint8)
+    dev = Rb.device
+    if Fw % 4:
+        table = torch.nn.functional.pad(table, (0, -Fw % 4), value=-1)
+    table = table.contiguous()
+    _build.require(table, "table", torch.int32, device=dev)
+    every_cell = frame is None and pos is None
+    if not every_cell:
+        frame, pos = (a.contiguous() for a in _exact_rows(Rb, T, frame, pos))
+        _build.require(frame, "frame", torch.int64, pos.shape, dev)
+        _build.require(pos, "pos", torch.int64, frame.shape, dev)
+    M_ = B * Hc * Wc if every_cell else frame.shape[0]
+    out = torch.empty((M_, N), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    if every_cell:
+        g = exact_geometry(Hc, Wc, Kc, L)
+        planes = exact_planes(Rb, T, Kc, g)
+        rows = (None, None)
+    else:
+        g = ExactGeometry(0, 0, 0, 0)
+        planes = M.linearize_responses_lanes(Rb, T, Kc)
+        rows = (frame.data_ptr(), pos.data_ptr())
+        table = table.view(N, -1, 4).transpose(0, 1).contiguous()  # (F / 4, N, 4)
+    lib = _build.library()
+    err = lib.lpe_exact_scores(
+        planes.data_ptr(), *rows, table.data_ptr(), out.data_ptr(), B, out.shape[0], L,
+        Hc, Wc, Kc, N, table.numel() // N, g.Hp, g.XS, g.BH, g.LS,
+        *_build.device_and_stream(Rb))
+    _build.check(err, "exact_scores")
+    tracing.count("launch.exact_scores")
     return out

@@ -8,8 +8,9 @@ The production path is the pooled exact matcher:
       versions in ops/features.py on the CPU;
   match_pooled_fine_with_fallback — group-max / cell-max / g x g subcell
       upper bounds over a batch-shared frame-major survivor pool, then the
-      exact int8 GEMM over pooled survivors and a per-frame top-k, with the
-      exhaustive GEMM as the exact fallback on any pool overflow;
+      exact scores of pooled survivors and a per-frame top-k, with the
+      exhaustive scores as the exact fallback on any pool overflow (both
+      scorers XS on the card, the int8 GEMM on the CPU);
   refine_candidates_opencv_batched — cv::linemod's exact 16 x 16 local
       walk, K3 on the card.
 
@@ -42,6 +43,12 @@ Every output equals the reference's bit for bit.  What changed on the way:
 - The int8 GEMMs run on ``torch._int_mm`` (cuBLASLt on the card).  It
   wants k and n multiples of 8, so weights are stored once, K-major and
   zero-padded to n8 (``MatmulWeight``), and outputs are sliced back to n.
+- The exact coarse scores are a one-hot GEMM in the reference, the TPU's
+  way to a gather.  On the card they are the gather itself: kernel XS
+  (ops/cuda_kernels.exact_scores) sums each template's live features
+  from the linearized responses, through the feature table the exact
+  weights carry (build_gemm_table); the CPU keeps the int8 GEMM.  Both
+  give the same integers.
 - The reference's one-hot gather matmuls and one-hot compaction matmul
   are TPU workarounds; here they are direct index gathers and a
   cumsum + scatter compaction (same frame-major ascending order).
@@ -151,17 +158,48 @@ def _scatter_counts(n_cols: int, row_of, feats: LevelFeatures) -> torch.Tensor:
     return out.view(N, n_cols)
 
 
-def build_gemm_weights(feats: LevelFeatures, C: int, T: int, Kc: int) -> torch.Tensor:
-    """One-hot GEMM weights (C*T*T*Kc*Kc, N) int8: row index
-    ((qy*Kc + qx) * C + ori) * T*T + ry*T + rx for a feature at offset
-    (dy, dx) = (qy*T + ry, qx*T + rx).  Built once per bank, template-
-    major in memory (a transposed view), the layout int8_mm wants."""
+def _gemm_rows(feats: LevelFeatures, C: int, T: int, Kc: int) -> torch.Tensor:
+    """(N, Fmax) GEMM row of every feature slot: ((qy*Kc + qx) * C + ori)
+    * T*T + ry*T + rx for a feature at offset (dy, dx) = (qy*T + ry, qx*T
+    + rx), qy and qx clamped to [0, Kc - 1]."""
     dy = feats.offsets[..., 0]
     dx = feats.offsets[..., 1]
     qy = (dy // T).clamp(0, Kc - 1)
     qx = (dx // T).clamp(0, Kc - 1)
-    row = ((qy * Kc + qx) * C + feats.oris) * (T * T) + (dy % T) * T + (dx % T)
-    return _scatter_counts(C * T * T * Kc * Kc, row, feats).t()
+    return ((qy * Kc + qx) * C + feats.oris) * (T * T) + (dy % T) * T + (dx % T)
+
+
+def build_gemm_weights(feats: LevelFeatures, C: int, T: int, Kc: int) -> torch.Tensor:
+    """One-hot GEMM weights (C*T*T*Kc*Kc, N) int8: the count of each
+    template's live features at each GEMM row (_gemm_rows).  Built once
+    per bank, template-major in memory (a transposed view), the layout
+    int8_mm wants."""
+    return _scatter_counts(C * T * T * Kc * Kc, _gemm_rows(feats, C, T, Kc), feats).t()
+
+
+def build_gemm_table(feats: LevelFeatures, C: int, T: int, Kc: int) -> torch.Tensor:
+    """The exact scorer's feature table (N, F) int32: the GEMM row of each
+    live feature slot (duplicates kept, so W_gemm's counts are the rows'
+    multiplicities), -1 in a dead slot; F is Fmax rounded up to 4."""
+    row = torch.where(feats.live, _gemm_rows(feats, C, T, Kc), -1).to(torch.int32)
+    return torch.nn.functional.pad(row, (0, -row.shape[1] % 4), value=-1).contiguous()
+
+
+def gemm_table_from_nk(nk: torch.Tensor, n: int) -> torch.Tensor:
+    """The feature table of the first n templates of a K-major count
+    matrix (ceil8(n), K): each non-zero row index repeated by its count,
+    ascending, -1 past a template's total."""
+    W = nk[:n]
+    counts = W.sum(dim=1, dtype=torch.int64)
+    width = int(counts.max()) if n else 0
+    width += -width % 4
+    t, k = torch.nonzero(W, as_tuple=True)
+    reps = W[t, k].to(torch.int64)
+    t, k = t.repeat_interleave(reps), k.repeat_interleave(reps)
+    slot = torch.arange(t.shape[0], device=nk.device) - (torch.cumsum(counts, 0) - counts)[t]
+    table = torch.full((n, width), -1, dtype=torch.int32, device=nk.device)
+    table[t, slot] = k.to(torch.int32)
+    return table
 
 
 def build_cell_weights(feats: LevelFeatures, C: int, T: int, Kc: int) -> torch.Tensor:
@@ -208,10 +246,14 @@ class MatmulWeight(NamedTuple):
     """A (k, n) int8 GEMM operand, stored K-major as (ceil8(n), k) with
     zero rows padding n (torch._int_mm takes n % 8 == 0), plus the true
     column count n.  K-major is the layout cuBLASLt's int8 tensor-core
-    path wants for the second operand ("TN")."""
+    path wants for the second operand ("TN").  The exact one-hot weights
+    also carry `table` (build_gemm_table: (n, F) int32, the GEMM row of
+    each live feature), which the exact scorer reads on the card instead
+    of the dense operand."""
 
     nk: torch.Tensor
     n: int
+    table: torch.Tensor | None = None
 
     @staticmethod
     def from_nk(W: torch.Tensor) -> "MatmulWeight":
@@ -250,10 +292,25 @@ def build_bank_weights(
         W_group, counts = build_group_bound(feats1, C, T, Kc, group, W_cell=W_cell)
         W_group = MatmulWeight.from_nk(W_group)
     return BankWeights(
-        W_gemm=MatmulWeight.from_kn(build_gemm_weights(feats1, C, T, Kc)),
+        W_gemm=gemm_weight(feats1, C, T, Kc),
         W_cell=MatmulWeight.from_nk(W_cell), W_fine=W_fine, W_group=W_group,
         group_counts=counts,
     )
+
+
+def gemm_weight(feats: LevelFeatures, C: int, T: int, Kc: int) -> MatmulWeight:
+    """The exact one-hot weights as a MatmulWeight, with their table."""
+    return MatmulWeight.from_kn(build_gemm_weights(feats, C, T, Kc))._replace(
+        table=build_gemm_table(feats, C, T, Kc))
+
+
+def _exact_table(W_gemm: MatmulWeight) -> torch.Tensor:
+    """The table the exact scorer reads on the card."""
+    if W_gemm.table is None:
+        raise ValueError("W_gemm carries no feature table: the exact scorer on a "
+                         "card needs one (build it with gemm_weight or "
+                         "gemm_table_from_nk)")
+    return W_gemm.table
 
 
 def int8_mm(a: torch.Tensor, w: MatmulWeight) -> torch.Tensor:
@@ -635,18 +692,29 @@ def coarse_scores_gemm_pooled(
     T: int,
     Kc: int,
 ) -> torch.Tensor:
-    """Exact coarse GEMM over pool candidates: (M, N) int32 — rows of the
-    exhaustive GEMM, bit for bit."""
+    """Exact coarse scores of pool candidates: (M, N) int32 — rows of the
+    exhaustive GEMM, bit for bit.  On the card the gather-sum kernel XS
+    over W_gemm's table, on the CPU the int8 GEMM of the survivor
+    patches."""
+    if Rb.is_cuda:
+        from . import cuda_kernels as CK
+
+        return CK.exact_scores(Rb, _exact_table(W_gemm), T, Kc, frame, pos)
     return int8_mm(_survivor_patches(Rb, frame, pos, T, Kc), W_gemm)
 
 
 def coarse_scores_gemm_flat_batched(
     Rb: torch.Tensor, W_gemm: MatmulWeight, T: int, Kc: int
 ) -> torch.Tensor:
-    """(B, C, H, W) -> (B, Hc*Wc, N) int32 via ONE GEMM (the exhaustive
-    scorer the pooled path falls back to)."""
+    """(B, C, H, W) -> (B, Hc*Wc, N) int32, every template at every cell
+    (the exhaustive scorer the pooled path falls back to): on the card
+    one launch of XS over W_gemm's table, on the CPU ONE int8 GEMM."""
     B, C, H, W = Rb.shape
     P = (H // T) * (W // T)
+    if Rb.is_cuda:
+        from . import cuda_kernels as CK
+
+        return CK.exact_scores(Rb, _exact_table(W_gemm), T, Kc).reshape(B, P, -1)
     return int8_mm(_gemm_patches(Rb, T, Kc), W_gemm).reshape(B, P, -1)
 
 
@@ -1228,8 +1296,11 @@ def match_coarse_pruned_with_fallback(
 
 def _gathered_weight(W_gemm: MatmulWeight, idx: torch.Tensor) -> MatmulWeight:
     """The exact GEMM's weights of the templates `idx` only: rows of the
-    K-major operand (a contiguous row gather), padded to 8 again."""
-    return MatmulWeight.from_nk(W_gemm.nk[idx.long()])
+    K-major operand (a contiguous row gather), padded to 8 again, and the
+    same rows of its table."""
+    idx = idx.long()
+    table = None if W_gemm.table is None else W_gemm.table[idx]
+    return MatmulWeight.from_nk(W_gemm.nk[idx])._replace(table=table)
 
 
 def coarse_scores_gemm_flat_batched_sub2(

@@ -130,3 +130,12 @@ def depth_normal(B: int, H: int, W: int) -> Bound:
     """DN: (B, H, W) f32 depth and the NORMAL_LUT -> (B, H, W) u8."""
     px = B * H * W
     return bound(px * 4 + NORMAL_LUT_BYTES + px, px * DEPTH_NORMAL_OPS_PER_PX)
+
+
+def exact_scores(M: int, N: int, F: int, live_features: int, plane_bytes: int) -> Bound:
+    """XS over M rows and N templates whose (N, F) int32 table holds
+    `live_features` live entries: one add per (row, live entry); the
+    table read once, the response bytes the rows read (`plane_bytes`:
+    the frames' Hc*T x Wc*T crop for every cell, at most M patch rows of
+    C*T*T*Kc*Kc bytes for a row list) and the (M, N) int32 scores."""
+    return bound(plane_bytes + N * F * 4 + M * N * 4, M * live_features)

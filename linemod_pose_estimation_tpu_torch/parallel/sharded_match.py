@@ -247,8 +247,9 @@ def make_sharded_bank(
 
 class RingBank(NamedTuple):
     """This rank's starting shard of a ring bank: the exact GEMM's weights
-    (K-major, ceil8(n_local) rows: the rotating payload) and both levels'
-    features; the shard's id is the rank's ring coordinate."""
+    (K-major, ceil8(n_local) rows, and their feature table: the rotating
+    payload) and both levels' features; the shard's id is the rank's ring
+    coordinate."""
 
     W1: M.MatmulWeight
     feats1: M.LevelFeatures
@@ -267,7 +268,7 @@ def make_ring_bank(
     dev = resolve_device(device)
     f1 = _shard_rows(pad_bank_features(feats1, n), r, n, dev)
     f0 = _shard_rows(pad_bank_features(feats0, n), r, n, dev)
-    return RingBank(M.MatmulWeight.from_kn(M.build_gemm_weights(f1, C, T1, Kc1)), f1, f0)
+    return RingBank(M.gemm_weight(f1, C, T1, Kc1), f1, f0)
 
 
 # ---------------------------------------------------------------------------
@@ -591,8 +592,9 @@ class RingDetectStep:
         for t in range(n):
             # The next shard goes on the wire before this step's GEMM.
             if t + 1 < n:
-                nxt = _ppermute_start([W1.nk, *feats1, *feats0], self.mesh, self.axis,
-                                      -1, log)
+                table = [] if W1.table is None else [W1.table]
+                nxt = _ppermute_start([W1.nk, *feats1, *feats0, *table], self.mesh,
+                                      self.axis, -1, log)
             vpos = M.position_validity_flat(feats1.size, self.T1, Hc, Wc)
             raw = M.coarse_scores_gemm_flat_batched(R1, W1, self.T1, self.Kc1)
             cand = M.select_candidates_flat(raw, feats1.count, vpos, self.sel_thr, k, Wc)
@@ -611,8 +613,8 @@ class RingDetectStep:
                 valid=take(best.valid, ref.valid) & (vals >= thr))
             if t + 1 < n:
                 got = nxt.wait()
-                W1 = M.MatmulWeight(got[0], W1.n)
-                feats1, feats0 = M.LevelFeatures(*got[1:6]), M.LevelFeatures(*got[6:])
+                W1 = M.MatmulWeight(got[0], W1.n, *got[11:])
+                feats1, feats0 = M.LevelFeatures(*got[1:6]), M.LevelFeatures(*got[6:11])
         return best
 
 

@@ -136,7 +136,7 @@ def case_put(mesh, rgbs, depths):
 
 def case_row(mesh, axis, R1, R0, feats1, feats0, C, T1, Kc1, mkw, device="cpu"):
     f1 = feats_of(feats1).to(device)
-    W1 = M.MatmulWeight.from_kn(M.build_gemm_weights(f1, C, T1, Kc1))
+    W1 = M.gemm_weight(f1, C, T1, Kc1)
     fn = SM.make_row_sharded_matcher(mesh, axis, T1, Kc1, **mkw)
     stripe = lambda R: torch.from_numpy(local_rows(np.moveaxis(R, 1, 0), mesh, axis)
                                         ).movedim(0, 1).contiguous().to(device)

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2 (also at B=1, the port of K2b), K3, K4, K5, DN
-and the kernel paths of BatchedMatcher (pooled, positions, two_axis, the
+"""The CUDA kernels K1, K2 (also at B=1, the port of K2b), K3, K4, K5, DN,
+XS and the kernel paths of BatchedMatcher (pooled, positions, two_axis, the
 RGB-only bank), the K5 refiner, MultiClassBatchedMatcher (pooled and its
 default mode) and DetectionPipeline against their plain
 PyTorch versions, on a card; then the cascade's non-default options (the
@@ -235,6 +235,122 @@ def test_batched_matcher_kernels_equal_plain(cuda):
     want = BatchedMatcher(td, cid, 70.0, B, plain=True, **kw).match_batch(rgbs, deps)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _fullbin_operands(cuda):
+    """batch32-fullbin's exact-scorer operands: the B=32 level-1 responses
+    of S.bin_picking_batch's scenes (16 x 240 x 320, Kc 12) and the bank
+    tiled to 10,624 templates (16 of them dead rows) with its table."""
+    td = Detector.read(BANK)
+    bank = td.bank(td.class_ids[0])
+    tiled = bank.tile(-(-10240 // bank.num_templates), 10624)
+    C, Kc = 8 * tiled.num_modalities, tiled.max_cell_extent(1)
+    W = TM.gemm_weight(tiled.merged_features(1).to(cuda), C, 8, Kc)
+    rgbs, deps, _ = S.bin_picking_batch(32, seed=3)
+    _, R1 = TM.preprocess_frames_batched(torch.from_numpy(rgbs).to(cuda),
+                                         torch.from_numpy(deps).to(cuda), use_depth=True)
+    return R1, W, Kc
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows", ["every_cell", "pool_1152"])
+def test_exact_scores_kernel_at_the_fullbin_shapes(cuda, rows):
+    """XS against its plain twin and the int8 GEMM route it replaced, at
+    batch32-fullbin's shapes: all 38,400 cells of the batch (the
+    exhaustive call) or a frame-major 1152-row pool list (the exact tier's
+    36 rows a frame), over 10,624 templates; bit for bit."""
+    R1, W, Kc = _fullbin_operands(cuda)
+    B, _, H, Wd = R1.shape
+    P = (H // 8) * (Wd // 8)
+    tracing.reset()
+    if rows == "every_cell":
+        got = CK.exact_scores(R1, W.table, 8, Kc)
+        gemm = TM.int8_mm(TM._gemm_patches(R1, 8, Kc), W)
+        frame = pos = None
+    else:
+        g = torch.Generator().manual_seed(21)
+        frame = torch.sort(torch.randint(0, B, (1152,), generator=g)).values.to(cuda)
+        pos = torch.randint(0, P, (1152,), generator=g).to(cuda)
+        got = CK.exact_scores(R1, W.table, 8, Kc, frame, pos)
+        gemm = TM.int8_mm(TM._survivor_patches(R1, frame, pos, 8, Kc), W)
+    assert tracing.launches()["exact_scores"] == 1
+    assert got.shape == gemm.shape == (gemm.shape[0], 10624)
+    assert torch.equal(got, gemm)
+    del gemm
+    assert torch.equal(got, CK.exact_scores_plain(R1, W.table, 8, Kc, frame, pos))
+    assert int(got.max()) > 0 and int(got[:, -16:].abs().sum()) == 0  # dead rows score 0
+
+
+@pytest.mark.requires_cuda
+def test_exact_scores_kernel_on_odd_banks(cuda):
+    """XS against its plain twin off the main path's shapes: T = 4 and 5,
+    frames off the T grid, Fmax 37 (padded to 40) and 200 (the 8-slot
+    variant), dead templates filling a whole 64-template tile, offsets
+    past the Kc clamp, a frame whose rows take one band, and a patch too
+    large for shared memory in one pass (Kc 16 at C*T*T 1024)."""
+    rng = np.random.default_rng(4)
+    cases = [(2, 16, 160, 160, 8, 6, 48, 70, 126), (3, 2, 92, 176, 4, 6, 40, 9, 20),
+             (2, 3, 60, 230, 5, 4, 26, 130, 33), (1, 16, 240, 320, 8, 12, 96, 200, 200),
+             (2, 16, 83, 101, 8, 4, 30, 65, 37), (1, 16, 16, 16, 8, 12, 96, 3, 8),
+             (2, 16, 64, 80, 8, 16, 128, 20, 64)]
+    for B, C, H, W, T, Kc, ext, N, F in cases:
+        Rb = torch.from_numpy(rng.integers(0, 5, (B, C, H, W)).astype(np.uint8)).to(cuda)
+        live = torch.from_numpy(rng.random((N, F)) < 0.9)
+        if N >= 100:
+            live[:64] = False  # a whole tile of dead templates
+        feats = TM.LevelFeatures(
+            torch.from_numpy(rng.integers(0, ext, (N, F, 2)).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, C, (N, F)).astype(np.int32)), live,
+            live.sum(1).int(), torch.full((N, 2), ext, dtype=torch.int32)).to(cuda)
+        table = TM.build_gemm_table(feats, C, T, Kc)
+        P = (H // T) * (W // T)
+        frame = torch.from_numpy(np.sort(rng.integers(0, B, 50))).to(cuda)
+        pos = torch.from_numpy(rng.integers(0, P, 50)).to(cuda)
+        for fr, po in ((None, None), (frame, pos)):
+            got = CK.exact_scores(Rb, table, T, Kc, fr, po)
+            assert torch.equal(got, CK.exact_scores_plain(Rb, table, T, Kc, fr, po)), (
+                (B, C, H, W, T, Kc, N, F), fr is None)
+
+
+# The pooled matcher's routes on the golden crops (15 x 20 level-1 cells a
+# frame), pools as large as the frames so that only the named overflow
+# happens: (BatchedMatcher keywords, launches of XS, the batch falls back)
+EXACT_ROUTES = {
+    "exact_tier": ({}, 1, False),
+    "coarse_overflow": (dict(pool_coarse=1), 1, True),
+    "select_overflow": (dict(sel_row_cap=1), 2, True),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("route", list(EXACT_ROUTES))
+def test_pooled_matcher_scores_through_xs_alone(cuda, monkeypatch, route):
+    """The pooled matcher on the card launches XS once for its exact tier
+    and once for its exhaustive fallback, never torch._int_mm with the
+    exact weights, and matches the CPU matcher (the int8 GEMM) on every
+    slot."""
+    td = Detector.read(BANK)
+    cid = td.class_ids[0]
+    B = 2
+    extra, launches, fallback = EXACT_ROUTES[route]
+    kw = dict(top_k=64, prune=True, prune_mode="pooled", fine_g=4, group_bound=16,
+              pool_coarse=B * 300, pool_fine=B * 300, pool_group=B * 300, sel_row_cap=300)
+    kw.update(extra)
+    rgbs, deps = S.golden_crops()
+    m = BatchedMatcher(td, cid, 70.0, B, device=cuda, **kw)
+    exact_nk = m.weights.W_gemm.nk.data_ptr()
+    seen = []
+    int8_mm = TM.int8_mm
+    monkeypatch.setattr(TM, "int8_mm", lambda a, w: (seen.append(w.nk.data_ptr()),
+                                                     int8_mm(a, w))[1])
+    tracing.reset()
+    got = m.match_batch(rgbs, deps)
+    assert tracing.launches()["exact_scores"] == launches
+    assert seen and exact_nk not in seen
+    assert bool(m.last_pool.fallback) == fallback
+    want = BatchedMatcher(td, cid, 70.0, B, device="cpu", **kw).match_batch(rgbs, deps)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
 
 
 # keyword arguments of BatchedMatcher(prune=True) -> (coarse, fine) overflow;
