@@ -25,7 +25,9 @@ line each:
       (tests/data/torch_port_golden.npz);
   2b. B=32 over the bank tiled to 10,624 templates: the kernel path equals
       the plain path (every Matches field); launch counts of K1/K2/K3 in
-      that run (DN exactly once), PooledStats, found rate, batch time;
+      that run (DN and XS exactly once; none in the plain run), the
+      matcher's exact weights without a dense one-hot operand,
+      PooledStats, found rate, batch time;
   2c. the same batch with pool_coarse forced tiny: the exhaustive fallback
       runs and the Matches equal 2b's;
   2d. XS (the exact coarse scorer) against its plain twin and the int8
@@ -196,8 +198,9 @@ line each:
       frame 0) and the 4-rank ring step on the cascade frames over the
       2652-template bank, every Matches field and metric equal to
       tests/data/torch_sharded_golden.npz and kernel path equal to plain
-      path; the B=32 pooled step over the tiled bank on phase 8's batch
-      (16 frames and 5312 templates a rank): kernel path equal to plain
+      path, which launches no kernel; the B=32 pooled step over the tiled
+      bank on phase 8's batch (16 frames and 5312 templates a rank):
+      kernel path equal to plain
       path on every rank, the best match per frame and the valid sets
       (where neither side filled top_k) equal to the single-device
       BatchedMatcher's, the group pool run, K1/K2/K3 launches per rank,
@@ -461,39 +464,42 @@ def depth_normal_vs_plain(depth, dist: float, diff: float, name: str) -> dict:
         bound=RL.depth_normal(*depth.shape)._asdict())
 
 
-def exact_scores_vs_plain(R1, W, T: int, Kc: int, frame=None, pos=None) -> dict:
-    """XS against its plain twin and the int8 GEMM route it replaced (the
-    im2col or the survivor gather, then torch._int_mm: library_ms), bitwise,
-    on every cell of R1 (frame and pos None) or on the rows (frame, pos);
-    all three timed, with the launch's bound."""
+def exact_scores_vs_plain(R1, table, dense, T: int, Kc: int, frame=None, pos=None) -> dict:
+    """XS over the feature table against its plain twin and the int8 GEMM
+    route it replaced (the im2col or the survivor gather, then
+    torch._int_mm over the dense one-hot operand: library_ms), bitwise, on
+    every cell of R1 (frame and pos None) or on the rows (frame, pos); all
+    three timed, with the launch's bound."""
     from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
     from linemod_pose_estimation_tpu_torch.ops import match as M
     from linemod_pose_estimation_tpu_torch.ops import roofline as RL
 
     if frame is None:
-        route = lambda: M.int8_mm(M._gemm_patches(R1, T, Kc), W)
+        route = lambda: M.int8_mm(M._gemm_patches(R1, T, Kc), dense)
     else:
-        route = lambda: M.int8_mm(M._survivor_patches(R1, frame, pos, T, Kc), W)
-    kern = lambda: CK.exact_scores(R1, W.table, T, Kc, frame, pos)
-    plain = lambda: CK.exact_scores_plain(R1, W.table, T, Kc, frame, pos)
+        route = lambda: M.int8_mm(M._survivor_patches(R1, frame, pos, T, Kc), dense)
+    kern = lambda: CK.exact_scores(R1, table, T, Kc, frame, pos)
+    plain = lambda: CK.exact_scores_plain(R1, table, T, Kc, frame, pos)
     got = kern()
     err = max_abs_err(got, plain())
     require(err == 0, f"XS differs from its plain twin on {got.shape[0]} rows")
     require(torch.equal(got, route()), f"XS differs from the int8 GEMM on {got.shape[0]} rows")
     B, C, H, Wd = R1.shape
-    rows, (N, F) = got.shape[0], W.table.shape
+    rows, (N, F) = got.shape[0], table.shape
     crop = B * C * (H // T * T) * (Wd // T * T)
     planes = crop if frame is None else min(crop, rows * Kc * Kc * C * T * T)
     del got
     return dict(**kernel_times(kern, "exact_", reps=5 if frame is None else 20),
                 plain_ms=cuda_ms(plain, 1), library_ms=cuda_ms(route, 3), max_abs_err=err,
                 rows=rows, templates=N,
-                bound=RL.exact_scores(rows, N, F, int((W.table >= 0).sum()), planes)._asdict())
+                bound=RL.exact_scores(rows, N, F, int((table >= 0).sum()), planes)._asdict())
 
 
 def exact_phase(dev: torch.device, perf: dict, matcher=None, rgbs=None, deps=None) -> None:
     """Phase 2d: XS on the tiled batch's level-1 responses and bank (built
-    here when phase 2b's matcher and frames are not given)."""
+    here when phase 2b's matcher and frames are not given), against the
+    int8 GEMM over the bank's dense one-hot operand, built here for the
+    comparison alone (the matcher holds none on the card)."""
     from linemod_pose_estimation_tpu_torch.models.detector import Detector
     from linemod_pose_estimation_tpu_torch.models.serving import BatchedMatcher, slice_settings
     from linemod_pose_estimation_tpu_torch.ops import match as M
@@ -509,15 +515,20 @@ def exact_phase(dev: torch.device, perf: dict, matcher=None, rgbs=None, deps=Non
         rgbs_np, deps_np, _ = S.bin_picking_batch(B_MAIN, seed=3)
         rgbs, deps = torch.from_numpy(rgbs_np).to(dev), torch.from_numpy(deps_np).to(dev)
     _, R1 = M.preprocess_frames_batched(rgbs, deps, use_depth=True)
-    W, T, Kc = matcher.weights.W_gemm, matcher.T1, matcher.Kc1
+    T, Kc = matcher.T1, matcher.Kc1
+    exact = matcher.weights.exact
+    require(exact.dense is None, "the card's exact weights hold a dense one-hot operand")
+    dense = M.MatmulWeight.from_kn(M.build_gemm_weights(matcher.feats1, R1.shape[1], T, Kc))
     B, P = R1.shape[0], (R1.shape[2] // T) * (R1.shape[3] // T)
     g = torch.Generator().manual_seed(EXACT_POOL_SEED)
     frame = torch.sort(torch.randint(0, B, (EXACT_POOL_ROWS,), generator=g)).values.to(dev)
     pos = torch.randint(0, P, (EXACT_POOL_ROWS,), generator=g).to(dev)
-    n = W.table.shape[0]
-    perf["exact_scores"][f"every_cell_{B}x{n}"] = exact_scores_vs_plain(R1, W, T, Kc)
+    n = exact.n
+    perf["exact_scores"][f"every_cell_{B}x{n}"] = exact_scores_vs_plain(
+        R1, exact.table, dense, T, Kc)
     perf["exact_scores"][f"pool_{EXACT_POOL_ROWS}x{n}"] = exact_scores_vs_plain(
-        R1, W, T, Kc, frame, pos)
+        R1, exact.table, dense, T, Kc, frame, pos)
+    del dense
     emit("exact_vs_plain", XS=perf["exact_scores"])
 
 
@@ -1943,14 +1954,14 @@ def aux_phase(dev: torch.device) -> dict:
     T1, Kc1 = bank.params.t_pyramid[1], bank.max_cell_extent(1)
     feats1 = bank.merged_features(1).to(dev)
     W_dense = bank.dense_weights(1).to(dev)
-    W_gemm = dets["auto"]._gemm_weight(cid)
+    exact_w = dets["auto"]._exact_weights(cid)
     coarse_ms = {}
     for f in range(rgbs.shape[0]):
         pyr = M.preprocess_frame(rgbs[f], deps[f], use_depth=True)
         R1 = torch.cat([pyr.grad_r1, pyr.norm_r1])
         engines = {"gather": lambda: M.coarse_scores(R1, feats1, T1, Kc1),
                    "conv": lambda: M.coarse_scores_conv(R1, W_dense, T1),
-                   "gemm": lambda: M.coarse_scores_gemm(R1, W_gemm, T1, Kc1)}
+                   "gemm": lambda: M.coarse_scores_gemm(R1, exact_w, T1, Kc1)}
         raw = {e: fn() for e, fn in engines.items()}
         require(torch.equal(raw["gather"], raw["conv"]) and torch.equal(raw["gather"],
                                                                         raw["gemm"]),
@@ -1978,7 +1989,7 @@ def aux_phase(dev: torch.device) -> dict:
          launches_per_gather_match=launches, coarse_ms=coarse_ms, match_raw_ms=match_ms,
          dense_weights_bytes=bank.num_templates * 8 * bank.num_modalities
          * bank.extent(1) ** 2, extent1=bank.extent(1), max_cell_extent1=Kc1)
-    del dets, W_gemm
+    del dets, exact_w
 
     # -- (b) the grasp planner and the segmentation ops -----------------------
     K = on(np.array([[FX, 0, 320.0], [0, FY, 240.0], [0, 0, 1.0]], np.float32))
@@ -2160,7 +2171,7 @@ def _parallel_gloo_rank(rank: int, world: int, inputs: str, out_dir: str) -> Non
     R0s = R0[0, :, b * h0:(b + 1) * h0].contiguous()
     R1s = R1[0, :, b * h1:(b + 1) * h1].contiguous()
     f1, f0 = g1.to(dev), g0.to(dev)
-    W1 = M.gemm_weight(f1, C, T1, Kc1)
+    W1 = M.exact_weights(f1, C, T1, Kc1)
     for plain in (False, True):
         row = SM.make_row_sharded_matcher(mesh, "bank", T1, Kc1, p["top_k"], THRESHOLD,
                                           T0=T0, E0=E0, plain=plain)
@@ -2362,13 +2373,8 @@ def parallel_phase(dev: torch.device) -> dict:
         for key in ("pool", "pos", "row", "ring", "b32"):
             require(_same(res[key]["m"], res[key + "_plain"]["m"]),
                     f"phase 14 rank {r}: {key} kernel path != plain path")
-            # `plain` selects the plain K1-K3; the exact scores are XS in both
-            # paths (phase 2d holds XS to its plain twin), the same calls.
-            plain = res[key + "_plain"]["launches"]
-            require(all(v == 0 for k, v in plain.items() if k != "exact_scores"),
+            require(not any(res[key + "_plain"]["launches"].values()),
                     f"phase 14 rank {r}: {key}'s plain path launched a kernel")
-            require(plain["exact_scores"] == res[key]["launches"]["exact_scores"] > 0,
-                    f"phase 14 rank {r}: {key}'s paths scored through XS unequally")
         require(res["b32"]["met"] == res["b32_plain"]["met"],
                 f"phase 14 rank {r}: B=32 metrics kernel != plain")
         for key in ("pool", "pos", "ring", "b32"):
@@ -2628,6 +2634,8 @@ def main() -> int:
         require(launches[k] > 0, f"kernel {k} was not launched on the main path")
     require(launches["depth_normal"] == 1, "DN did not launch once in the main-path batch")
     require(launches["exact_scores"] == 1, "XS did not launch once in the main-path batch")
+    require(main_m.weights.exact.dense is None,
+            "the main-path matcher holds a dense one-hot operand on the card")
     stats = main_m.last_pool
     require(not bool(stats.fallback), "the main-path batch fell back; it must "
             "exercise the pooled branch")
@@ -2637,10 +2645,13 @@ def main() -> int:
         main_m.match_batch(rgbs, deps)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    tracing.reset()
     t0 = time.perf_counter()
     m_plain = plain_m.match_batch(rgbs, deps)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
+    require(not any(tracing.launches().values()), "tiled batch: the plain path launched "
+            f"a kernel: {tracing.launches()}")
     require(matches_equal(m_kern, m_plain), "tiled batch: kernel path != plain path")
     found, total = S.found_rate(m_kern.valid.cpu(), m_kern.x.cpu(), m_kern.y.cpu(), truths)
     emit("tiled_batch", batch=B_MAIN, templates=det.bank(cid).num_templates,

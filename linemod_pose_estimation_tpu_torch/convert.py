@@ -12,18 +12,12 @@ import torch
 
 from .ops.match import (BankWeights, CoarseMatches, FinePlan, LevelFeatures,
                         Matches, MatmulWeight, PrunePlan, PruneResult,
-                        gemm_table_from_nk)
+                        exact_weights_from_dense)
 from .utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def _t(a, dtype, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a), dtype=dtype, device=resolve_device(device))
-
-
-def _exact(W: MatmulWeight) -> MatmulWeight:
-    """Exact one-hot weights with their feature table on a card, where the
-    exact scorer reads it; on the CPU the int8 GEMM needs none."""
-    return W._replace(table=gemm_table_from_nk(W.nk, W.n)) if W.nk.is_cuda else W
 
 
 def level_features_from_numpy(offsets, oris, live, count, size,
@@ -40,10 +34,11 @@ def bank_from_numpy(W_gemm, W_cell, W_fine, W_group=None, group_counts=None,
                     device=DEFAULT_DEVICE) -> BankWeights:
     """The reference's built weights — W_gemm (K, N), W_cell (N, bins),
     W_fine (N, fine bins), W_group (Ng, bins), group_counts (Ng, group) —
-    -> the port's BankWeights (zero-padded int8 GEMM operands)."""
+    -> the port's BankWeights (the exact scorer's weights, zero-padded
+    int8 GEMM operands)."""
     i8 = lambda a: _t(a, torch.int8, device)
     return BankWeights(
-        W_gemm=_exact(MatmulWeight.from_kn(i8(W_gemm))),
+        exact=exact_weights_from_dense(i8(W_gemm).t(), np.shape(W_gemm)[1]),
         W_cell=MatmulWeight.from_nk(i8(W_cell)),
         W_fine=MatmulWeight.from_nk(i8(W_fine)),
         W_group=None if W_group is None else MatmulWeight.from_nk(i8(W_group)),
@@ -190,7 +185,7 @@ def sharded_bank_from_numpy(W1_rows, W_cell, W_fine, feats1, feats0, rank: int,
     rows = lambda f: level_features_from_numpy(*(np.asarray(a)[sl] for a in f), device=device)
     W_fine = np.asarray(W_fine)
     weights = BankWeights(
-        W_gemm=_exact(MatmulWeight.from_nk(i8(W1_rows))),
+        exact=exact_weights_from_dense(i8(W1_rows), n_local),
         W_cell=MatmulWeight.from_nk(i8(W_cell)),
         W_fine=MatmulWeight.from_nk(i8(W_fine)) if W_fine.shape[1] else None,
         W_group=None, group_counts=None)
@@ -209,8 +204,8 @@ def ring_bank_from_numpy(W1, feats1, feats0, rank: int, n_shards: int,
     n_local = W1.shape[1] // n_shards
     sl = slice(rank * n_local, (rank + 1) * n_local)
     rows = lambda f: level_features_from_numpy(*(np.asarray(a)[sl] for a in f), device=device)
-    return RingBank(_exact(MatmulWeight.from_kn(_t(W1[:, sl], torch.int8, device))),
-                    rows(feats1), rows(feats0))
+    exact = exact_weights_from_dense(_t(W1[:, sl], torch.int8, device).t(), n_local)
+    return RingBank(exact, rows(feats1), rows(feats0))
 
 
 def record_to_numpy(record, prefix: str = "") -> dict[str, np.ndarray]:

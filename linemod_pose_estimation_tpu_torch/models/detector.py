@@ -8,12 +8,12 @@ when first asked.  `match_raw` / `match` are the single-frame engine:
 preprocess (K1, K2 at B=1), coarse scores at every position,
 template-major top-k selection, and cv::linemod's exact walk (K3 at B=1).
 `engine` picks the coarse scorer: "gather" is the reference's gather scan
-(``ops.match.coarse_scores``); "conv" and "auto" take the exact int8
-GEMM (``coarse_scores_gemm``) on every device.  Both give equal Matches.
-The reference's "auto" picks by how fast XLA's convolution is on the
-backend (gather on its CPU), which is no concern of the port's.
-`make_matcher_fn` is the reference's serving fn: the GEMM engine with
-the position-major GEMM and select, whatever `engine` says.  Frame
+(``ops.match.coarse_scores``); "conv" and "auto" the exact scorer
+(``coarse_scores_gemm``).  Both give equal Matches.  The reference's
+"auto" picks by how fast XLA's convolution is on the backend (gather on
+its CPU), which is no concern of the port's.  `make_matcher_fn` is the
+reference's serving fn: the exact scorer's position-major scores and
+select, whatever `engine` says.  Frame
 batches go through ``models.serving.BatchedMatcher``.  `device` places
 the bank operands and the computation (default the card; `device="cpu"`
 runs the plain PyTorch versions on the host).
@@ -57,8 +57,8 @@ class Detector:
     def __init__(self, params: DetectorParams | None = None, f_cap: int = 64,
                  device=DEFAULT_DEVICE, engine: str = "auto"):
         """engine: "gather" (the gather scan), "conv" or "auto" (the exact
-        int8 GEMM); any other value takes the gather scan, as the
-        reference's does."""
+        scorer); any other value takes the gather scan, as the reference's
+        does."""
         self.params = params or DetectorParams()
         self.f_cap = f_cap
         self.device = resolve_device(device)
@@ -66,7 +66,7 @@ class Detector:
         self._templates: dict[str, list[TemplateFeatures]] = {}
         self._banks: dict[str, TemplateBank] = {}
         self._operands: dict[str, tuple] = {}
-        self._gemm: dict[str, M.MatmulWeight] = {}
+        self._exact: dict[str, M.ExactWeights] = {}
 
     @property
     def class_ids(self) -> list[str]:
@@ -98,7 +98,7 @@ class Detector:
 
     def _forget(self, class_id: str) -> None:
         """Drop a class's built bank and its device operands."""
-        for d in (self._banks, self._operands, self._gemm):
+        for d in (self._banks, self._operands, self._exact):
             d.pop(class_id, None)
 
     def bank(self, class_id: str) -> TemplateBank:
@@ -136,15 +136,15 @@ class Detector:
                                         bank.merged_features(0).to(self.device))
         return self._operands[class_id]
 
-    def _gemm_weight(self, class_id: str) -> M.MatmulWeight:
-        """The class's one-hot GEMM weights on the detector's device, built
+    def _exact_weights(self, class_id: str) -> M.ExactWeights:
+        """The class's exact-scorer weights on the detector's device, built
         once."""
-        if class_id not in self._gemm:
+        if class_id not in self._exact:
             bank = self.bank(class_id)
-            self._gemm[class_id] = M.gemm_weight(
+            self._exact[class_id] = M.exact_weights(
                 self._bank_feats(class_id)[0], 8 * bank.num_modalities,
                 self.params.t_pyramid[1], bank.max_cell_extent(1))
-        return self._gemm[class_id]
+        return self._exact[class_id]
 
     def match_raw(self, rgb, threshold: float, depth_mm=None,
                   class_ids: list[str] | None = None, top_k: int = 512
@@ -195,7 +195,7 @@ class Detector:
         R0, R1 = self._response_stacks(pyr)
         Kc1 = bank.max_cell_extent(1)
         if self.engine in ("conv", "auto"):
-            raw = M.coarse_scores_gemm(R1, self._gemm_weight(class_id), T1, Kc1)
+            raw = M.coarse_scores_gemm(R1, self._exact_weights(class_id), T1, Kc1)
         else:
             raw = M.coarse_scores(R1, feats1, T1, Kc1)
         Hc, Wc = raw.shape[1:]
@@ -211,17 +211,17 @@ class Detector:
                         approx_select: bool = True,
                         use_pallas_refine: bool | None = None):
         """fn(rgb, depth_mm=None) -> Matches (top_k,) of one frame:
-        preprocess at B=1, the position-major exact int8 GEMM, the top_k
+        preprocess at B=1, the position-major exact scores, the top_k
         select at threshold - 5 and cv::linemod's walk.  The reference's
         `approx_select` picks approx_max_k over an exact top_k; the port's
         select is exact either way (on the reference's CPU backend the two
-        agree).  `use_pallas_refine=False` runs the walk's plain version
-        even on the card; otherwise CUDA tensors launch K3."""
+        agree).  `use_pallas_refine=False` runs the plain exact scorer and
+        walk even on the card; otherwise CUDA tensors launch XS and K3."""
         p = self.params
         T0, T1 = p.t_pyramid
         bank = self.bank(class_id)
         feats1, feats0 = self._bank_feats(class_id)
-        W_gemm = self._gemm_weight(class_id)
+        exact = self._exact_weights(class_id)
         Kc1, E0 = bank.max_cell_extent(1), bank.extent(0)
         plain = use_pallas_refine is False
 
@@ -233,7 +233,7 @@ class Detector:
                                      use_depth=p.use_depth_normal,
                                      weak_threshold=p.color.weak_threshold)
             R0, R1 = self._response_stacks(pyr)
-            raw = M.coarse_scores_gemm_flat(R1, W_gemm, T1, Kc1)
+            raw = M.coarse_scores_gemm_flat(R1, exact, T1, Kc1, plain)
             Hc, Wc = R1.shape[1] // T1, R1.shape[2] // T1
             vpos = M.position_validity_flat(feats1.size, T1, Hc, Wc)
             cand = M.select_candidates_flat(raw[None], feats1.count, vpos,

@@ -3,8 +3,8 @@ step — the port of ``linemod_pose_estimation_tpu/models/serving.py``'s
 BatchedMatcher and MultiClassBatchedMatcher.
 
 A BatchedMatcher step: batched preprocess (K1 + K2 on the card), then the
-exact candidate selection in one of four ways — the exhaustive int8 GEMM
-and a per-frame top-k (``prune=False``, the default); per-frame survivor
+exact candidate selection in one of four ways — the exhaustive exact
+scores and a per-frame top-k (``prune=False``, the default); per-frame survivor
 caps with exact fallbacks (``prune=True``, ``prune_mode="positions"``,
 ops.match.match_coarse_pruned_fine_with_fallback); a survivor grid on both
 axes without a fallback (``"two_axis"``, ops.match.prune_plan_batched); or
@@ -86,19 +86,19 @@ PRUNE_MODES = ("positions", "two_axis", "pooled")
 
 class BatchedMatcher:
     """`prune=False` (the default) scores every position of every template
-    with ONE exhaustive int8 GEMM over the batch, selects each frame's
-    top_k and walks all of them.  `prune=True` runs the exact int8 GEMM
-    only where the cell-max upper bound reaches the selection threshold
-    (`threshold - 5`), in one of three modes.
+    with ONE exhaustive call of the exact scorer over the batch, selects
+    each frame's top_k and walks all of them.  `prune=True` runs the exact
+    scorer only where the cell-max upper bound reaches the selection
+    threshold (`threshold - 5`), in one of three modes.
 
     `prune_mode="positions"` (the default with `prune=True`) keeps at most
     `prune_pos_cap` survivor positions per frame.  `fine_g` adds the second
     stage: a g x g subcell max bound re-tested at the coarse survivors,
     compacted to `fine_pos_cap` positions (None -> half of
-    `prune_pos_cap`) before the exact GEMM; a `fine_g` that does not
+    `prune_pos_cap`) before the exact scores; a `fine_g` that does not
     divide T1, or None, disables the stage.  A frame past `fine_pos_cap`
     sends the batch through the coarse survivor set, a frame past
-    `prune_pos_cap` through the exhaustive GEMM, so results are
+    `prune_pos_cap` through the exhaustive scores, so results are
     unconditionally exact.  `self.last_prune` (a PrunePlan) and
     `self.last_fine` (a FinePlan; None without the stage) report the most
     recent batch's survivor counts and overflow flags.
@@ -113,16 +113,14 @@ class BatchedMatcher:
     the two pools (None -> 64/32 slots per batch frame), `sel_row_cap`
     bounds the per-frame select range, `group_bound` turns on the
     group-max pre-bound with a `pool_group`-slot pool (None -> 2 x
-    pool_coarse).  Any overflow runs the exhaustive GEMM.  `self.last_pool`
+    pool_coarse).  Any overflow runs the exhaustive scores.  `self.last_pool`
     (a PooledStats) reports true survivor totals and any fallback of the
     most recent batch, and `self.last_n_valid` its per-frame count of valid
     candidates; the walk skips the slots past it.
 
-    `dot_m_chunk` is the reference's row-chunk knob for its pooled dot,
-    bit-identical either way: accepted and ignored.  `device` places the
-    bank operands and the computation.  `plain=True` runs the plain
-    PyTorch versions of K1/K2/K3 even on the card — the path the kernels
-    are checked against."""
+    `device` places the bank operands and the computation.  `plain=True`
+    runs the plain PyTorch versions of K1, K2, DN, XS and K3 even on the
+    card — the path the kernels are checked against."""
 
     def __init__(self, detector, class_id: str, threshold: float, batch: int,
                  top_k: int = 256, prune: bool = False, prune_cap: int = 1024,
@@ -130,8 +128,8 @@ class BatchedMatcher:
                  fine_g: int | None = 4, fine_pos_cap: int | None = None,
                  pool_coarse: int | None = None, pool_fine: int | None = None,
                  sel_row_cap: int = 128, group_bound: int | None = None,
-                 pool_group: int | None = None, dot_m_chunk: int = 0,
-                 device=DEFAULT_DEVICE, plain: bool = False):
+                 pool_group: int | None = None, device=DEFAULT_DEVICE,
+                 plain: bool = False):
         if prune_mode not in PRUNE_MODES:
             raise ValueError(f"prune_mode={prune_mode!r}: one of {PRUNE_MODES}")
         p = detector.params
@@ -199,20 +197,20 @@ class BatchedMatcher:
         w = self.weights
         count = self.feats1.count
         if not self.prune:
-            raw = M.coarse_scores_gemm_flat_batched(R1, w.W_gemm, T1, self.Kc1)
+            raw = M.coarse_scores_gemm_flat_batched(R1, w.exact, T1, self.Kc1, self.plain)
             cands = M.select_candidates_flat(raw, count, vpos, thr, self.top_k, Wc)
             return R0, cands, None
         if self.prune_mode == "positions":
             if self.fine_g:
                 cands, self.last_prune, self.last_fine = \
                     M.match_coarse_pruned_fine_with_fallback(
-                        R1, w.W_gemm, w.W_cell, w.W_fine, count, vpos, thr, T1,
+                        R1, w.exact, w.W_cell, w.W_fine, count, vpos, thr, T1,
                         self.Kc1, self.fine_g, self.prune_pos_cap,
-                        self.fine_pos_cap, self.top_k, Wc)
+                        self.fine_pos_cap, self.top_k, Wc, self.plain)
             else:
                 cands, self.last_prune = M.match_coarse_pruned_with_fallback(
-                    R1, w.W_gemm, w.W_cell, count, vpos, thr, T1, self.Kc1,
-                    self.prune_pos_cap, self.top_k, Wc)
+                    R1, w.exact, w.W_cell, count, vpos, thr, T1, self.Kc1,
+                    self.prune_pos_cap, self.top_k, Wc, self.plain)
                 self.last_fine = None
             return R0, cands, None
         if self.prune_mode == "two_axis":
@@ -220,7 +218,7 @@ class BatchedMatcher:
                                       self.Kc1, self.prune_cap, self.prune_pos_cap)
             self.last_prune = pr
             raw_sub = M.coarse_scores_gemm_flat_batched_sub2(
-                R1, w.W_gemm, pr.t_idx, pr.p_idx, T1, self.Kc1)
+                R1, w.exact, pr.t_idx, pr.p_idx, T1, self.Kc1, self.plain)
             cands = M.select_candidates_flat_sub2(
                 raw_sub, count, vpos, pr.t_idx, pr.t_keep, pr.p_idx, pr.p_keep,
                 thr, self.top_k, Wc)
@@ -230,9 +228,9 @@ class BatchedMatcher:
             group = dict(W_group=w.W_group, group_counts=w.group_counts,
                          pool0=self.pool_group, group=self.group_bound)
         cands, n_valid, stats = M.match_pooled_fine_with_fallback(
-            R1, w.W_gemm, w.W_cell, w.W_fine, count, vpos, thr, T1,
+            R1, w.exact, w.W_cell, w.W_fine, count, vpos, thr, T1,
             self.Kc1, self.fine_g, self.pool_coarse, self.pool_fine, self.top_k,
-            Wc, r_cap=self.sel_row_cap, **group,
+            Wc, r_cap=self.sel_row_cap, **group, plain=self.plain,
         )
         self.last_pool = stats
         self.last_n_valid = n_valid
@@ -262,10 +260,10 @@ class MultiClassBatchedMatcher:
     """Several object classes per frame batch through ONE pipeline: the
     classes' template axes are concatenated (ops.match.concat_level_
     features), so one preprocess, one pruned pass at min(thresholds), one
-    exact GEMM and one walk over the merged, re-sorted candidates serve
-    every class; only the select runs per class, at the class's
-    threshold - 5, and each class's walked matches are re-gated at its own
-    threshold.
+    call of the exact scorer and one walk over the merged, re-sorted
+    candidates serve every class; only the select runs per class, at the
+    class's threshold - 5, and each class's walked matches are re-gated at
+    its own threshold.
 
     `prune_mode="positions"` (the default) is BatchedMatcher's per-frame
     cap mode over the merged bank (ops.match.match_coarse_pruned_
@@ -356,17 +354,17 @@ class MultiClassBatchedMatcher:
         tracing.count("multiclass.classes", len(classes))
         if self.prune_mode == "pooled":
             cands, _, self.last_pool = M.match_pooled_multiclass(
-                R1, w.W_gemm, w.W_cell, w.W_fine, self.feats1.count, vpos,
+                R1, w.exact, w.W_cell, w.W_fine, self.feats1.count, vpos,
                 self.slices, sel_thrs, T1, self.Kc1, self.fine_g,
                 self.pool_coarse, self.pool_fine, self.top_k, Wc,
-                r_cap=self.sel_row_cap, classes=classes,
+                r_cap=self.sel_row_cap, classes=classes, plain=self.plain,
             )
         else:
             cands, self.last_prune = M.match_coarse_pruned_multiclass(
-                R1, w.W_gemm, w.W_cell, w.W_fine, self.feats1.count, vpos,
+                R1, w.exact, w.W_cell, w.W_fine, self.feats1.count, vpos,
                 self.slices, sel_thrs, T1, self.Kc1, self.prune_pos_cap,
                 self.top_k, Wc, g=self.fine_g, m2_cap=self.fine_pos_cap,
-                classes=classes,
+                classes=classes, plain=self.plain,
             )
         return R0, cands
 

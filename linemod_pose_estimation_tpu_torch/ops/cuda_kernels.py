@@ -21,7 +21,6 @@ import torch
 from ..utils import tracing
 from . import _build
 from . import features as F
-from . import match as M
 
 WIN = 16  # OpenCV's fixed 16 x 16 local similarity map
 
@@ -437,7 +436,7 @@ def exact_scores(Rb: torch.Tensor, table: torch.Tensor, T: int, Kc: int,
         rows = (None, None)
     else:
         g = ExactGeometry(0, 0, 0, 0)
-        planes = M.linearize_responses_lanes(Rb, T, Kc)
+        planes = F.linearize_responses_lanes(Rb, T, Kc)
         rows = (frame.data_ptr(), pos.data_ptr())
         table = table.view(N, -1, 4).transpose(0, 1).contiguous()  # (F / 4, N, 4)
     lib = _build.library()

@@ -313,3 +313,16 @@ def pyr_down(img: torch.Tensor) -> torch.Tensor:
     x = _pad_hw(img.to(torch.float32), 2, "reflect")
     out = _taps_valid(_taps_valid(x, _PYR5, -1), _PYR5, -2)
     return torch.floor(out[..., ::2, ::2] + 0.5)
+
+
+def linearize_responses_lanes(R: torch.Tensor, T: int, max_cell_extent: int) -> torch.Tensor:
+    """(..., C, H, W) responses -> (..., Hc + Kc, Wc + Kc, C*T*T) planes
+    (channel x subcell last), zero-padded by Kc cells bottom/right."""
+    *lead, C, H, W = R.shape
+    Hc, Wc = H // T, W // T
+    Kc = max_cell_extent
+    Rc = R[..., : Hc * T, : Wc * T].reshape(*lead, C, Hc, T, Wc, T)
+    n = len(lead)
+    perm = list(range(n)) + [n + 1, n + 3, n, n + 2, n + 4]
+    L = Rc.permute(*perm).reshape(*lead, Hc, Wc, C * T * T)
+    return F.pad(L, (0, 0, 0, Kc, 0, Kc))

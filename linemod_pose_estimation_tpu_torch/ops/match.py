@@ -10,7 +10,7 @@ The production path is the pooled exact matcher:
       upper bounds over a batch-shared frame-major survivor pool, then the
       exact scores of pooled survivors and a per-frame top-k, with the
       exhaustive scores as the exact fallback on any pool overflow (both
-      scorers XS on the card, the int8 GEMM on the CPU);
+      through exact_scores);
   refine_candidates_opencv_batched — cv::linemod's exact 16 x 16 local
       walk, K3 on the card.
 
@@ -18,21 +18,21 @@ The exhaustive mode (BatchedMatcher(prune=False)) is
 coarse_scores_gemm_flat_batched and a per-frame select_candidates_flat,
 then the walk.  The per-frame-cap modes are
 match_coarse_pruned_fine_with_fallback (`positions`: prune_positions_
-batched, fine_ub_at_survivors, fine_plan_from_ub, the survivor GEMM, with
-the coarse survivor set and the exhaustive GEMM as exact fallbacks) and
-prune_plan_batched with the _sub2 GEMM and select (`two_axis`: both axes
-compacted, no fallback).  The window refiners (refine_candidates, _slices, _conv,
-_pallas, _pallas_batched) score a dense 24 x 24 window around each
-candidate; the last two run K5.  The two-object path
+batched, fine_ub_at_survivors, fine_plan_from_ub, the survivors' exact
+scores, with the coarse survivor set and the exhaustive scores as exact
+fallbacks) and prune_plan_batched with the _sub2 scores and select
+(`two_axis`: both axes compacted, no fallback).  The window refiners
+(refine_candidates, _slices, _conv, _pallas, _pallas_batched) score a
+dense 24 x 24 window around each candidate; the last two run K5.  The two-object path
 (MultiClassBatchedMatcher) is concat_level_features,
 match_coarse_pruned_multiclass or match_pooled_multiclass,
 merge_candidates_sorted, the walk and split_matches_by_class.
 
 The single-frame engine (``models/detector.py::Detector.match_raw``) is
 preprocess_frame (the B=1 call of the batched preprocess), the
-exhaustive GEMM (coarse_scores_gemm), the reference's template-major
+exhaustive scores (coarse_scores_gemm), the reference's template-major
 select_candidates and refine_candidates_opencv (the B=1 walk);
-``Detector.make_matcher_fn`` takes the position-major GEMM and select.
+``Detector.make_matcher_fn`` takes the position-major scores and select.
 ``Detector(engine="gather")`` scores with coarse_scores instead, the
 reference's gather scan over linearize_responses' planes; its other twin,
 coarse_scores_conv over build_dense_weights' filter bank, and
@@ -44,11 +44,11 @@ Every output equals the reference's bit for bit.  What changed on the way:
   wants k and n multiples of 8, so weights are stored once, K-major and
   zero-padded to n8 (``MatmulWeight``), and outputs are sliced back to n.
 - The exact coarse scores are a one-hot GEMM in the reference, the TPU's
-  way to a gather.  On the card they are the gather itself: kernel XS
-  (ops/cuda_kernels.exact_scores) sums each template's live features
-  from the linearized responses, through the feature table the exact
-  weights carry (build_gemm_table); the CPU keeps the int8 GEMM.  Both
-  give the same integers.
+  way to a gather.  Here ``ExactWeights`` and the router exact_scores
+  hold them: on a card kernel XS (or its plain twin) sums each template's
+  live features through the feature table (build_gemm_table), and no
+  dense operand exists there; on the CPU, the faster route there, the
+  int8 GEMM over the dense one.  Both give the same integers.
 - The reference's one-hot gather matmuls and one-hot compaction matmul
   are TPU workarounds; here they are direct index gathers and a
   cumsum + scatter compaction (same frame-major ascending order).
@@ -66,6 +66,8 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..utils import tracing
+from . import cuda_kernels as CK
+from . import cuda_preprocess as CP
 from . import features as F
 
 _NEG = -(2**30)  # margin sentinel below any real margin
@@ -171,16 +173,16 @@ def _gemm_rows(feats: LevelFeatures, C: int, T: int, Kc: int) -> torch.Tensor:
 
 def build_gemm_weights(feats: LevelFeatures, C: int, T: int, Kc: int) -> torch.Tensor:
     """One-hot GEMM weights (C*T*T*Kc*Kc, N) int8: the count of each
-    template's live features at each GEMM row (_gemm_rows).  Built once
-    per bank, template-major in memory (a transposed view), the layout
-    int8_mm wants."""
+    template's live features at each GEMM row (_gemm_rows), template-major
+    in memory (a transposed view), the layout int8_mm wants.  The exact
+    scorer's dense operand on the CPU (ExactWeights.dense)."""
     return _scatter_counts(C * T * T * Kc * Kc, _gemm_rows(feats, C, T, Kc), feats).t()
 
 
 def build_gemm_table(feats: LevelFeatures, C: int, T: int, Kc: int) -> torch.Tensor:
     """The exact scorer's feature table (N, F) int32: the GEMM row of each
-    live feature slot (duplicates kept, so W_gemm's counts are the rows'
-    multiplicities), -1 in a dead slot; F is Fmax rounded up to 4."""
+    live feature slot (duplicates kept, so build_gemm_weights' counts are
+    the rows' multiplicities), -1 in a dead slot; F is Fmax rounded up to 4."""
     row = torch.where(feats.live, _gemm_rows(feats, C, T, Kc), -1).to(torch.int32)
     return torch.nn.functional.pad(row, (0, -row.shape[1] % 4), value=-1).contiguous()
 
@@ -246,14 +248,10 @@ class MatmulWeight(NamedTuple):
     """A (k, n) int8 GEMM operand, stored K-major as (ceil8(n), k) with
     zero rows padding n (torch._int_mm takes n % 8 == 0), plus the true
     column count n.  K-major is the layout cuBLASLt's int8 tensor-core
-    path wants for the second operand ("TN").  The exact one-hot weights
-    also carry `table` (build_gemm_table: (n, F) int32, the GEMM row of
-    each live feature), which the exact scorer reads on the card instead
-    of the dense operand."""
+    path wants for the second operand ("TN")."""
 
     nk: torch.Tensor
     n: int
-    table: torch.Tensor | None = None
 
     @staticmethod
     def from_nk(W: torch.Tensor) -> "MatmulWeight":
@@ -268,10 +266,58 @@ class MatmulWeight(NamedTuple):
         return MatmulWeight.from_nk(W.t())
 
 
+class ExactWeights(NamedTuple):
+    """The exact coarse scorer's weights of n templates: the (n, F) feature
+    table (build_gemm_table), and on the CPU alone `dense`, the one-hot
+    int8 GEMM operand (build_gemm_weights)."""
+
+    table: torch.Tensor
+    n: int
+    dense: MatmulWeight | None
+
+    def rows(self, idx: torch.Tensor) -> "ExactWeights":
+        """The weights of the templates `idx` only (a row gather)."""
+        idx = idx.long()
+        dense = None if self.dense is None else MatmulWeight.from_nk(self.dense.nk[idx])
+        return ExactWeights(self.table[idx], idx.shape[0], dense)
+
+
+def exact_weights(feats: LevelFeatures, C: int, T: int, Kc: int) -> ExactWeights:
+    """The exact scorer's weights of a bank, on feats' device: the table,
+    and on the CPU, where the int8 GEMM outruns the gather, the dense too."""
+    table = build_gemm_table(feats, C, T, Kc)
+    cpu = table.device.type == "cpu"
+    dense = MatmulWeight.from_kn(build_gemm_weights(feats, C, T, Kc)) if cpu else None
+    return ExactWeights(table, table.shape[0], dense)
+
+
+def exact_weights_from_dense(nk: torch.Tensor, n: int) -> ExactWeights:
+    """The exact scorer's weights of the first n templates of K-major
+    one-hot counts nk (>= n, K) int8 (the reference's W_gemm transposed,
+    or its ShardedBank's W1_rows), on nk's device."""
+    dense = MatmulWeight.from_nk(nk[:n]) if nk.device.type == "cpu" else None
+    return ExactWeights(gemm_table_from_nk(nk, n), n, dense)
+
+
+def exact_scores(Rb: torch.Tensor, w: ExactWeights, T: int, Kc: int,
+                 frame: torch.Tensor | None = None, pos: torch.Tensor | None = None,
+                 plain: bool = False) -> torch.Tensor:
+    """Exact coarse scores (M, N) int32 of the rows (frame[m], flat cell
+    pos[m]), or of every cell of every frame with frame and pos None: on a
+    card XS over w.table (its plain twin with `plain`), on the CPU the int8
+    GEMM over w.dense."""
+    if Rb.is_cuda:
+        xs = CK.exact_scores_plain if plain else CK.exact_scores
+        return xs(Rb, w.table, T, Kc, frame, pos)
+    if frame is None:
+        return int8_mm(_gemm_patches(Rb, T, Kc), w.dense)
+    return int8_mm(_survivor_patches(Rb, frame, pos, T, Kc), w.dense)
+
+
 class BankWeights(NamedTuple):
     """A matcher's bank operands (built once per bank)."""
 
-    W_gemm: MatmulWeight  # exact one-hot weights, (C*T*T*Kc*Kc, N)
+    exact: ExactWeights  # the exact coarse scorer's
     W_cell: MatmulWeight  # cell-max bound, from (N, C*Kc*Kc)
     W_fine: MatmulWeight | None  # g x g subcell bound, from (N, KS*KS*C)
     W_group: MatmulWeight | None  # group-max bound, from (Ng, C*Kc*Kc)
@@ -292,25 +338,10 @@ def build_bank_weights(
         W_group, counts = build_group_bound(feats1, C, T, Kc, group, W_cell=W_cell)
         W_group = MatmulWeight.from_nk(W_group)
     return BankWeights(
-        W_gemm=gemm_weight(feats1, C, T, Kc),
+        exact=exact_weights(feats1, C, T, Kc),
         W_cell=MatmulWeight.from_nk(W_cell), W_fine=W_fine, W_group=W_group,
         group_counts=counts,
     )
-
-
-def gemm_weight(feats: LevelFeatures, C: int, T: int, Kc: int) -> MatmulWeight:
-    """The exact one-hot weights as a MatmulWeight, with their table."""
-    return MatmulWeight.from_kn(build_gemm_weights(feats, C, T, Kc))._replace(
-        table=build_gemm_table(feats, C, T, Kc))
-
-
-def _exact_table(W_gemm: MatmulWeight) -> torch.Tensor:
-    """The table the exact scorer reads on the card."""
-    if W_gemm.table is None:
-        raise ValueError("W_gemm carries no feature table: the exact scorer on a "
-                         "card needs one (build it with gemm_weight or "
-                         "gemm_table_from_nk)")
-    return W_gemm.table
 
 
 def int8_mm(a: torch.Tensor, w: MatmulWeight) -> torch.Tensor:
@@ -327,19 +358,6 @@ def int8_mm(a: torch.Tensor, w: MatmulWeight) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def linearize_responses_lanes(R: torch.Tensor, T: int, max_cell_extent: int) -> torch.Tensor:
-    """(..., C, H, W) responses -> (..., Hc + Kc, Wc + Kc, C*T*T) planes
-    (channel x subcell last), zero-padded by Kc cells bottom/right."""
-    *lead, C, H, W = R.shape
-    Hc, Wc = H // T, W // T
-    Kc = max_cell_extent
-    Rc = R[..., : Hc * T, : Wc * T].reshape(*lead, C, Hc, T, Wc, T)
-    n = len(lead)
-    perm = list(range(n)) + [n + 1, n + 3, n, n + 2, n + 4]
-    L = Rc.permute(*perm).reshape(*lead, Hc, Wc, C * T * T)
-    return torch.nn.functional.pad(L, (0, 0, 0, Kc, 0, Kc))
-
-
 def _windows(L: torch.Tensor, Hc: int, Wc: int, Kc: int) -> torch.Tensor:
     """(B, Hc+Kc, Wc+Kc, D) -> (B*Hc*Wc, Kc*Kc*D): row (b, py, px) holds
     L[b, py+qy, px+qx, :] in (qy, qx, lane) order."""
@@ -352,7 +370,7 @@ def _gemm_patches(Rb: torch.Tensor, T: int, Kc: int) -> torch.Tensor:
     """(B, C, H, W) -> (B*Hc*Wc, C*T*T*Kc*Kc) int8 patch matrix; column
     order matches build_gemm_weights' row index."""
     B, C, H, W = Rb.shape
-    L = linearize_responses_lanes(Rb.to(torch.int8), T, Kc)
+    L = F.linearize_responses_lanes(Rb.to(torch.int8), T, Kc)
     return _windows(L, H // T, W // T, Kc)
 
 
@@ -677,7 +695,7 @@ def _survivor_patches(Rb: torch.Tensor, frame: torch.Tensor, pos: torch.Tensor,
     order."""
     B, C, H, W = Rb.shape
     Hc, Wc_ = H // T, W // T
-    L = linearize_responses_lanes(Rb.to(torch.int8), T, Kc)
+    L = F.linearize_responses_lanes(Rb.to(torch.int8), T, Kc)
     Hy = Hc + Kc
     L3 = L.reshape(B * Hy, Wc_ + Kc, C * T * T)
     row0 = frame * Hy + torch.div(pos, Wc_, rounding_mode="floor")
@@ -686,36 +704,27 @@ def _survivor_patches(Rb: torch.Tensor, frame: torch.Tensor, pos: torch.Tensor,
 
 def coarse_scores_gemm_pooled(
     Rb: torch.Tensor,
-    W_gemm: MatmulWeight,
+    exact: ExactWeights,
     frame: torch.Tensor,
     pos: torch.Tensor,
     T: int,
     Kc: int,
+    plain: bool = False,
 ) -> torch.Tensor:
     """Exact coarse scores of pool candidates: (M, N) int32 — rows of the
-    exhaustive GEMM, bit for bit.  On the card the gather-sum kernel XS
-    over W_gemm's table, on the CPU the int8 GEMM of the survivor
-    patches."""
-    if Rb.is_cuda:
-        from . import cuda_kernels as CK
-
-        return CK.exact_scores(Rb, _exact_table(W_gemm), T, Kc, frame, pos)
-    return int8_mm(_survivor_patches(Rb, frame, pos, T, Kc), W_gemm)
+    exhaustive scores, bit for bit (exact_scores)."""
+    return exact_scores(Rb, exact, T, Kc, frame, pos, plain)
 
 
 def coarse_scores_gemm_flat_batched(
-    Rb: torch.Tensor, W_gemm: MatmulWeight, T: int, Kc: int
+    Rb: torch.Tensor, exact: ExactWeights, T: int, Kc: int, plain: bool = False
 ) -> torch.Tensor:
     """(B, C, H, W) -> (B, Hc*Wc, N) int32, every template at every cell
-    (the exhaustive scorer the pooled path falls back to): on the card
-    one launch of XS over W_gemm's table, on the CPU ONE int8 GEMM."""
+    (the exhaustive scorer the pooled path falls back to): one call of
+    exact_scores."""
     B, C, H, W = Rb.shape
     P = (H // T) * (W // T)
-    if Rb.is_cuda:
-        from . import cuda_kernels as CK
-
-        return CK.exact_scores(Rb, _exact_table(W_gemm), T, Kc).reshape(B, P, -1)
-    return int8_mm(_gemm_patches(Rb, T, Kc), W_gemm).reshape(B, P, -1)
+    return exact_scores(Rb, exact, T, Kc, plain=plain).reshape(B, P, -1)
 
 
 def select_candidates_pooled(
@@ -773,7 +782,7 @@ class PooledStats(NamedTuple):
 
 def match_pooled_fine_with_fallback(
     Rb: torch.Tensor,
-    W_gemm: MatmulWeight,
+    exact: ExactWeights,
     W_cell: MatmulWeight,
     W_fine: MatmulWeight,
     total_features: torch.Tensor,
@@ -791,16 +800,17 @@ def match_pooled_fine_with_fallback(
     group_counts: torch.Tensor | None = None,
     pool0: int | None = None,
     group: int | None = None,
+    plain: bool = False,
 ) -> tuple[CoarseMatches, torch.Tensor, PooledStats]:
     """Two-stage exact pruning over a batch-shared survivor pool.
 
     Stage 1: cell-max bound (with `W_group` set: the group-max pre-bound
     first, pool_plan_grouped) -> frame-major pool of every eligible
     position (pool1).  Stage 2: g x g subcell bound at pool candidates ->
-    compacted fine pool (pool2).  Exact pass: pooled survivor patches x
-    the static (K, N) weights, then per-frame select over contiguous pool
-    ranges.  Any pool or select-range overflow routes the batch through
-    the exhaustive GEMM, so the candidate set is unconditionally exact.
+    compacted fine pool (pool2).  Exact pass: the pool's exact_scores
+    (`plain` as there), then per-frame select over contiguous pool ranges.
+    Any pool or select-range overflow routes the batch through the
+    exhaustive scores, so the candidate set is unconditionally exact.
 
     The reference's three lax.cond's are host branches here: each reads
     its flag with .item() (one device sync) and runs only the taken
@@ -822,8 +832,8 @@ def match_pooled_fine_with_fallback(
                 pp = pool_plan_from_margins(margins, pool1)
             t_int = int_score_threshold(threshold, total_features).to(torch.int32)
         cands, n_valid, stats = _pooled_selects(
-            Rb, pp, t_int, W_gemm, W_fine, total_features, vpos_flat,
-            [(vpos_flat, threshold)], T, Kc, g, pool1, pool2, top_k, Wc, r_cap)
+            Rb, pp, t_int, exact, W_fine, total_features, vpos_flat,
+            [(vpos_flat, threshold)], T, Kc, g, pool1, pool2, top_k, Wc, r_cap, plain)
     return cands[0], n_valid[0], stats
 
 
@@ -836,13 +846,13 @@ def _read_flag(flag: torch.Tensor) -> bool:
 
 
 def _pooled_selects(
-    Rb, pp: PoolPlan, t_int, W_gemm, W_fine, total_features, vpos_flat,
-    classes, T, Kc, g, pool1, pool2, top_k, Wc, r_cap,
+    Rb, pp: PoolPlan, t_int, exact, W_fine, total_features, vpos_flat,
+    classes, T, Kc, g, pool1, pool2, top_k, Wc, r_cap, plain,
 ) -> tuple[list[CoarseMatches], list[torch.Tensor], PooledStats]:
     """The pooled matcher after its coarse plan `pp`: the g x g fine
     re-test at the pool (pool2; on overflow the coarse pool is scored
-    instead), the exact pooled GEMM and one select per class, and the
-    exhaustive GEMM when the coarse pool or a select range overflows.
+    instead), the pool's exact scores and one select per class, and the
+    exhaustive scores when the coarse pool or a select range overflows.
     `classes` holds (vpos_c (P, N), threshold_c) per class: each class
     selects over its own columns at its own threshold.  Returns per-class
     lists of CoarseMatches (B, top_k) and n_valid (B,), and PooledStats."""
@@ -883,7 +893,7 @@ def _pooled_selects(
             else:
                 frame, pos, keep = pp.frame[idx2], pp.pos[idx2], keep2
                 starts, m_surv = torch.cumsum(fine_m, 0) - fine_m, fine_m
-            raw = coarse_scores_gemm_pooled(Rb, W_gemm, frame, pos, T, Kc)
+            raw = coarse_scores_gemm_pooled(Rb, exact, frame, pos, T, Kc, plain)
             cands, n_valid, sel_of = [], [], false
             for vpos_c, thr_c in classes:
                 c, nv, so = select_candidates_pooled(
@@ -898,7 +908,7 @@ def _pooled_selects(
         if not coarse_of:
             tracing.count("pool.select_overflow")
         with tracing.span("lpe.pool.fallback"):
-            raw = coarse_scores_gemm_flat_batched(Rb, W_gemm, T, Kc)
+            raw = coarse_scores_gemm_flat_batched(Rb, exact, T, Kc, plain)
             cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k, Wc)
                      for vpos_c, thr_c in classes]
             n_valid = [c.valid.sum(dim=1).to(torch.int32) for c in cands]
@@ -1145,13 +1155,14 @@ def assemble_survivor_patches(Rb: torch.Tensor, p_idx: torch.Tensor, T: int,
 
 
 def coarse_scores_gemm_flat_batched_pos(
-    Rb: torch.Tensor, W_gemm: MatmulWeight, p_idx: torch.Tensor, T: int, Kc: int
+    Rb: torch.Tensor, exact: ExactWeights, p_idx: torch.Tensor, T: int, Kc: int,
+    plain: bool = False,
 ) -> torch.Tensor:
-    """Exact coarse GEMM over per-frame survivor POSITIONS with the full
-    static weights: (B, m_cap, N) int32 — rows of the exhaustive GEMM."""
+    """Exact coarse scores at per-frame survivor POSITIONS with the full
+    static weights: (B, m_cap, N) int32 — rows of the exhaustive scores."""
     B, m = p_idx.shape
     return coarse_scores_gemm_pooled(
-        Rb, W_gemm, *_frame_pos(p_idx), T, Kc).reshape(B, m, -1)
+        Rb, exact, *_frame_pos(p_idx), T, Kc, plain).reshape(B, m, -1)
 
 
 def fine_ub_at_survivors(
@@ -1191,29 +1202,29 @@ def fine_plan_from_ub(
 
 
 def _positions_selects(
-    Rb, pp: PrunePlan, W_gemm, W_fine, total_features, vpos_flat, classes,
-    thr_bound: float, T, Kc, g, m2_cap, top_k, Wc,
+    Rb, pp: PrunePlan, exact, W_fine, total_features, vpos_flat, classes,
+    thr_bound: float, T, Kc, g, m2_cap, top_k, Wc, plain,
 ) -> tuple[list[CoarseMatches], FinePlan | None]:
     """The `positions` matcher after its coarse plan `pp`: with a fine
-    stage (`g`), the subcell re-test at `thr_bound` and the exact GEMM
-    over the fine survivors, or over the coarse ones when a frame
-    overflows m2_cap; the exhaustive GEMM when `pp` overflowed.  One
-    select per (vpos_c, threshold_c) of `classes`.  The reference's nested
-    lax.cond's are host branches here: each reads its flag with .item()
-    (one device sync) and only the taken branch runs.  Returns the
+    stage (`g`), the subcell re-test at `thr_bound` and the exact scores
+    of the fine survivors, or of the coarse ones when a frame overflows
+    m2_cap; the exhaustive scores when `pp` overflowed.  One select per
+    (vpos_c, threshold_c) of `classes`.  The reference's nested lax.cond's
+    are host branches here: each reads its flag with .item() (one device
+    sync) and only the taken branch runs.  Returns the
     per-class CoarseMatches (B, top_k) and the FinePlan (None without a
     fine stage; a placeholder holding nothing on the exhaustive branch)."""
     B = Rb.shape[0]
     dev = Rb.device
 
     def select_at(p_idx, p_keep):
-        raw = coarse_scores_gemm_flat_batched_pos(Rb, W_gemm, p_idx, T, Kc)
+        raw = coarse_scores_gemm_flat_batched_pos(Rb, exact, p_idx, T, Kc, plain)
         return [select_candidates_flat_pos(raw, total_features, vpos_c, p_idx.long(),
                                            p_keep, thr_c, top_k, Wc)
                 for vpos_c, thr_c in classes]
 
     if _read_flag(pp.overflow):
-        raw = coarse_scores_gemm_flat_batched(Rb, W_gemm, T, Kc)
+        raw = coarse_scores_gemm_flat_batched(Rb, exact, T, Kc, plain)
         cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k, Wc)
                  for vpos_c, thr_c in classes]
         if g is None:
@@ -1236,7 +1247,7 @@ def _positions_selects(
 
 def match_coarse_pruned_fine_with_fallback(
     Rb: torch.Tensor,
-    W_gemm: MatmulWeight,
+    exact: ExactWeights,
     W_cell: MatmulWeight,
     W_fine: MatmulWeight,
     total_features: torch.Tensor,
@@ -1249,14 +1260,15 @@ def match_coarse_pruned_fine_with_fallback(
     m2_cap: int,
     top_k: int,
     Wc: int,
+    plain: bool = False,
 ) -> tuple[CoarseMatches, PrunePlan, FinePlan]:
     """Two-stage exact position pruning with per-frame caps.
 
     Stage 1 (prune_positions_batched): the cell-max bound over every
     coarse position -> m_cap survivor positions per frame.  Stage 2
     (fine_ub_at_survivors + fine_plan_from_ub): the g x g subcell bound at
-    the survivors, compacted to m2_cap.  Exact pass: survivor patches x
-    the exhaustive engine's static weights.  A fine overflow scores all
+    the survivors, compacted to m2_cap.  Exact pass: the survivors' exact
+    scores (exact_scores, `plain` as there).  A fine overflow scores all
     m_cap coarse survivors, a coarse overflow every position, so the
     candidate set is unconditionally exact.  Returns (CoarseMatches (B,
     top_k), PrunePlan, FinePlan)."""
@@ -1265,14 +1277,14 @@ def match_coarse_pruned_fine_with_fallback(
     pp = prune_positions_batched(
         Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, m_cap)
     cands, fp = _positions_selects(
-        Rb, pp, W_gemm, W_fine, total_features, vpos_flat,
-        [(vpos_flat, threshold)], threshold, T, Kc, g, m2_cap, top_k, Wc)
+        Rb, pp, exact, W_fine, total_features, vpos_flat,
+        [(vpos_flat, threshold)], threshold, T, Kc, g, m2_cap, top_k, Wc, plain)
     return cands[0], pp, fp
 
 
 def match_coarse_pruned_with_fallback(
     Rb: torch.Tensor,
-    W_gemm: MatmulWeight,
+    exact: ExactWeights,
     W_cell: MatmulWeight,
     total_features: torch.Tensor,
     vpos_flat: torch.Tensor,
@@ -1282,36 +1294,28 @@ def match_coarse_pruned_with_fallback(
     m_cap: int,
     top_k: int,
     Wc: int,
+    plain: bool = False,
 ) -> tuple[CoarseMatches, PrunePlan]:
-    """Position-pruned coarse pass without the fine stage: the exact GEMM
-    over each frame's m_cap survivors, or over every position when any
+    """Position-pruned coarse pass without the fine stage: the exact
+    scores of each frame's m_cap survivors, or of every position when any
     frame overflows m_cap.  Returns (CoarseMatches (B, top_k), PrunePlan)."""
     pp = prune_positions_batched(
         Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, m_cap)
     cands, _ = _positions_selects(
-        Rb, pp, W_gemm, None, total_features, vpos_flat,
-        [(vpos_flat, threshold)], threshold, T, Kc, None, None, top_k, Wc)
+        Rb, pp, exact, None, total_features, vpos_flat,
+        [(vpos_flat, threshold)], threshold, T, Kc, None, None, top_k, Wc, plain)
     return cands[0], pp
 
 
-def _gathered_weight(W_gemm: MatmulWeight, idx: torch.Tensor) -> MatmulWeight:
-    """The exact GEMM's weights of the templates `idx` only: rows of the
-    K-major operand (a contiguous row gather), padded to 8 again, and the
-    same rows of its table."""
-    idx = idx.long()
-    table = None if W_gemm.table is None else W_gemm.table[idx]
-    return MatmulWeight.from_nk(W_gemm.nk[idx])._replace(table=table)
-
-
 def coarse_scores_gemm_flat_batched_sub2(
-    Rb: torch.Tensor, W_gemm: MatmulWeight, t_idx: torch.Tensor,
-    p_idx: torch.Tensor, T: int, Kc: int,
+    Rb: torch.Tensor, exact: ExactWeights, t_idx: torch.Tensor,
+    p_idx: torch.Tensor, T: int, Kc: int, plain: bool = False,
 ) -> torch.Tensor:
-    """Exact coarse GEMM over the survivor grid only: (B, m_cap, n_cap)
+    """Exact coarse scores over the survivor grid only: (B, m_cap, n_cap)
     int32 (dead slots hold real scores of whatever they index; the select
     masks them)."""
     return coarse_scores_gemm_flat_batched_pos(
-        Rb, _gathered_weight(W_gemm, t_idx), p_idx, T, Kc)
+        Rb, exact.rows(t_idx), p_idx, T, Kc, plain)
 
 
 def select_candidates_flat_sub2(
@@ -1340,11 +1344,12 @@ def select_candidates_flat_sub2(
 
 
 def coarse_scores_gemm_flat_batched_sub(
-    Rb: torch.Tensor, W_gemm: MatmulWeight, idx: torch.Tensor, T: int, Kc: int
+    Rb: torch.Tensor, exact: ExactWeights, idx: torch.Tensor, T: int, Kc: int,
+    plain: bool = False,
 ) -> torch.Tensor:
-    """Exact coarse GEMM over survivor TEMPLATES only, every position:
+    """Exact coarse scores over survivor TEMPLATES only, every position:
     (B, Hc*Wc, n_cap) int32."""
-    return coarse_scores_gemm_flat_batched(Rb, _gathered_weight(W_gemm, idx), T, Kc)
+    return coarse_scores_gemm_flat_batched(Rb, exact.rows(idx), T, Kc, plain)
 
 
 def select_candidates_flat_sub(
@@ -1397,7 +1402,7 @@ def concat_level_features(
 
 def match_pooled_multiclass(
     Rb: torch.Tensor,
-    W_gemm: MatmulWeight,
+    exact: ExactWeights,
     W_cell: MatmulWeight,
     W_fine: MatmulWeight,
     total_features: torch.Tensor,
@@ -1413,13 +1418,14 @@ def match_pooled_multiclass(
     Wc: int,
     r_cap: int = 128,
     classes: list | None = None,
+    plain: bool = False,
 ) -> tuple[list[CoarseMatches], list[torch.Tensor], PooledStats]:
     """The pooled matcher over a MERGED bank: one margin pass and one fine
     re-test, both at min(thresholds) (a survivor superset for every
-    class), one exact pooled GEMM over the merged template axis, then one
-    select per class over its own columns (`class_slices`) at its own
-    threshold.  Fallbacks as in the single-class path, host branches as
-    there.  `classes` is `_class_columns`' result for these operands,
+    class), the pool's exact scores over the merged template axis, then
+    one select per class over its own columns (`class_slices`) at its own
+    threshold.  Fallbacks, host branches and `plain` as in the
+    single-class path.  `classes` is `_class_columns`' result for these operands,
     built once by a caller that steps many batches (None: built here).
     Returns ([CoarseMatches (B, top_k) per class], [n_valid (B,) per
     class], PooledStats)."""
@@ -1437,9 +1443,9 @@ def match_pooled_multiclass(
             t_int = torch.ceil(scale * total_features.to(torch.float32) - 1e-4).to(torch.int32)
             if classes is None:
                 classes = _class_columns(vpos_flat, class_slices, thresholds)
-        return _pooled_selects(Rb, pp, t_int, W_gemm, W_fine, total_features,
+        return _pooled_selects(Rb, pp, t_int, exact, W_fine, total_features,
                                vpos_flat, classes, T, Kc, g, pool1, pool2, top_k,
-                               Wc, r_cap)
+                               Wc, r_cap, plain)
 
 
 def _class_columns(vpos_flat: torch.Tensor, class_slices, thresholds):
@@ -1452,7 +1458,7 @@ def _class_columns(vpos_flat: torch.Tensor, class_slices, thresholds):
 
 def match_coarse_pruned_multiclass(
     Rb: torch.Tensor,
-    W_gemm: MatmulWeight,
+    exact: ExactWeights,
     W_cell: MatmulWeight,
     W_fine: MatmulWeight | None,
     total_features: torch.Tensor,
@@ -1467,12 +1473,13 @@ def match_coarse_pruned_multiclass(
     g: int | None = 4,
     m2_cap: int | None = None,
     classes: list | None = None,
+    plain: bool = False,
 ) -> tuple[list[CoarseMatches], PrunePlan]:
     """match_coarse_pruned_fine_with_fallback over a MERGED bank: one
     coarse prune and one fine re-test, both at min(thresholds) (a survivor
-    superset for every class), one survivor GEMM over the merged template
-    axis, then one select per class over its own columns at its own
-    threshold.  Fallbacks as in the single-class path.  `W_fine=None` or
+    superset for every class), the survivors' exact scores over the merged
+    template axis, then one select per class over its own columns at its
+    own threshold.  Fallbacks and `plain` as in the single-class path.  `W_fine=None` or
     `g=None` skips the fine stage; `classes` as in match_pooled_multiclass.
     Returns ([CoarseMatches (B, top_k) per class], PrunePlan)."""
     thr_min = min(thresholds)
@@ -1485,9 +1492,9 @@ def match_coarse_pruned_multiclass(
     if classes is None:
         classes = _class_columns(vpos_flat, class_slices, thresholds)
     cands, _ = _positions_selects(
-        Rb, pp, W_gemm, W_fine, total_features, vpos_flat, classes, thr_min, T, Kc,
+        Rb, pp, exact, W_fine, total_features, vpos_flat, classes, thr_min, T, Kc,
         g if fine else None,
-        _default_cap(m2_cap, m_cap, "m2_cap") if fine else None, top_k, Wc)
+        _default_cap(m2_cap, m_cap, "m2_cap") if fine else None, top_k, Wc, plain)
     return cands, pp
 
 
@@ -1617,8 +1624,6 @@ def refine_candidates_opencv_batched(
     reported position is px + (T0/2 + T0%2 - 1).  Scores come from K3 on
     the card (ops/cuda_kernels.walk_scores) or its plain version
     (`plain=True`, or CPU tensors); skipped slots score exactly 0."""
-    from . import cuda_kernels as CK
-
     B, K = cand.template_id.shape
     T = fine_T
     WIN = CK.WIN
@@ -1694,8 +1699,6 @@ def _window_refine(R0, feats0, cand, coarse_T, threshold, fine_T, window,
     """Single-frame window refiner over (K,) candidates: `origins(ay, ax,
     offs)` gives each feature's window origin (K, F) — the refiner's own
     clip — and live slots are summed by the plain window sum."""
-    from . import cuda_kernels as CK
-
     C, H, W = R0.shape
     ay, ax = _window_anchors(cand, coarse_T, fine_T, H, W, min_y)
     t = cand.template_id.long()
@@ -1810,8 +1813,6 @@ def window_plan(R0_shape, feats0: LevelFeatures, cand: CoarseMatches,
 
 def _refine_k5(R0, feats0, cand, coarse_T, threshold, E0, fine_T, window,
                plain) -> Matches:
-    from . import cuda_kernels as CK
-
     plan = window_plan(R0.shape, feats0, cand, coarse_T, E0, fine_T)
     k5 = CK.refine_scores_plain if plain else CK.refine_scores
     scores = k5(R0, *plan.operands(), window=window, frame_idx=plan.frame_idx)
@@ -1891,9 +1892,6 @@ def preprocess_frames_batched(
     versions on any device (CPU tensors always do).  Level 1 subsamples
     the level-0 quantized normals (the engine's
     DepthNormalPyramid::pyrDown)."""
-    from . import cuda_kernels as CK
-    from . import cuda_preprocess as CP
-
     if use_depth and depths_mm is None:
         raise ValueError(
             "use_depth=True requires depths_mm (B, H, W) in millimetres"
@@ -1974,20 +1972,20 @@ def preprocess_frame(
 # ---------------------------------------------------------------------------
 
 
-def coarse_scores_gemm_flat(R: torch.Tensor, W_gemm: MatmulWeight, T: int,
-                            Kc: int) -> torch.Tensor:
+def coarse_scores_gemm_flat(R: torch.Tensor, exact: ExactWeights, T: int,
+                            Kc: int, plain: bool = False) -> torch.Tensor:
     """(C, H, W) responses -> raw scores (Hc*Wc, N) int32 of every template
-    at every T-strided position, position-major: the exact int8 GEMM of
-    one frame."""
-    return coarse_scores_gemm_flat_batched(R[None], W_gemm, T, Kc)[0]
+    at every T-strided position, position-major: the exact scores of one
+    frame."""
+    return coarse_scores_gemm_flat_batched(R[None], exact, T, Kc, plain)[0]
 
 
-def coarse_scores_gemm(R: torch.Tensor, W_gemm: MatmulWeight, T: int,
-                       Kc: int) -> torch.Tensor:
+def coarse_scores_gemm(R: torch.Tensor, exact: ExactWeights, T: int,
+                       Kc: int, plain: bool = False) -> torch.Tensor:
     """coarse_scores_gemm_flat, template-major (N, Hc, Wc) as the reference
     returns it."""
     C, H, W = R.shape
-    return coarse_scores_gemm_flat(R, W_gemm, T, Kc).t().reshape(-1, H // T, W // T)
+    return coarse_scores_gemm_flat(R, exact, T, Kc, plain).t().reshape(-1, H // T, W // T)
 
 
 def select_candidates(raw: torch.Tensor, total_features: torch.Tensor,
@@ -2031,12 +2029,7 @@ def linearize_responses(R: torch.Tensor, T: int, max_cell_extent: int) -> torch.
     """(C, H, W) responses -> (C*T*T, Hc + Kc, Wc + Kc) planes,
     L[c*T*T + ry*T + rx, i, j] = R[c, i*T + ry, j*T + rx], zero-padded by
     Kc cells bottom/right so any feature's cell shift reads in bounds."""
-    C, H, W = R.shape
-    Hc, Wc = H // T, W // T
-    Kc = max_cell_extent
-    Rc = R[:, : Hc * T, : Wc * T].reshape(C, Hc, T, Wc, T)
-    L = Rc.permute(0, 2, 4, 1, 3).reshape(C * T * T, Hc, Wc)
-    return torch.nn.functional.pad(L, (0, Kc, 0, Kc))
+    return F.linearize_responses_lanes(R, T, max_cell_extent).permute(2, 0, 1)
 
 
 def coarse_scores(R: torch.Tensor, feats: LevelFeatures, T: int,

@@ -207,7 +207,7 @@ def _shard_rows(feats: M.LevelFeatures, shard: int, n_shards: int, device) -> M.
 
 class ShardedBank(NamedTuple):
     """This rank's shard of a bank for the sharded detect step: its
-    templates' weights (the exact GEMM's, the cell bound's, the fine
+    templates' weights (the exact scorer's, the cell bound's, the fine
     bound's when `fine_g` is set, the group tier's when `group` is set),
     both levels' features, and the bank's channel count C
     (8 per modality), fine_g and group size."""
@@ -246,12 +246,11 @@ def make_sharded_bank(
 
 
 class RingBank(NamedTuple):
-    """This rank's starting shard of a ring bank: the exact GEMM's weights
-    (K-major, ceil8(n_local) rows, and their feature table: the rotating
-    payload) and both levels' features; the shard's id is the rank's ring
-    coordinate."""
+    """This rank's starting shard of a ring bank: the exact scorer's
+    weights and both levels' features (the rotating payload); the shard's
+    id is the rank's ring coordinate."""
 
-    W1: M.MatmulWeight
+    W1: M.ExactWeights
     feats1: M.LevelFeatures
     feats0: M.LevelFeatures
 
@@ -268,7 +267,7 @@ def make_ring_bank(
     dev = resolve_device(device)
     f1 = _shard_rows(pad_bank_features(feats1, n), r, n, dev)
     f0 = _shard_rows(pad_bank_features(feats0, n), r, n, dev)
-    return RingBank(M.gemm_weight(f1, C, T1, Kc1), f1, f0)
+    return RingBank(M.exact_weights(f1, C, T1, Kc1), f1, f0)
 
 
 # ---------------------------------------------------------------------------
@@ -311,10 +310,10 @@ class ShardedDetectStep:
     and with the bank's group tier a group pool of every position of the
     local batch, as serving.slice_settings sizes it), "positions"
     (per-frame caps, with the fine stage when `fine_g` divides T1), or
-    "two_axis"; `prune=False` the exhaustive GEMM.  The walk (K3) refines
+    "two_axis"; `prune=False` the exhaustive scores.  The walk (K3) refines
     this shard's candidates, the ids are re-based by shard * n_local, and
     the shards' Matches merge into a global top-k over "bank".
-    `plain=True` runs the plain versions of K1-K3.
+    `plain=True` runs the plain versions of K1, K2, DN, XS and K3.
 
     After a call, `last_pool` and `last_n_valid` (pooled), `last_prune` /
     `last_fine` (positions, two_axis) hold this rank's plans, and
@@ -373,30 +372,31 @@ class ShardedDetectStep:
                 group = dict(W_group=w.W_group, group_counts=w.group_counts,
                              pool0=B * R1.shape[2] // T1 * Wc, group=bank.group)
             cand, nv, self.last_pool = M.match_pooled_fine_with_fallback(
-                R1, w.W_gemm, w.W_cell, w.W_fine, count, vpos, thr, T1, Kc1,
-                self.fine_g, p1, p2, k, Wc, r_cap=self.sel_row_cap, **group)
+                R1, w.exact, w.W_cell, w.W_fine, count, vpos, thr, T1, Kc1,
+                self.fine_g, p1, p2, k, Wc, r_cap=self.sel_row_cap, **group,
+                plain=self.plain)
             return cand, nv, self.last_pool.fallback
         if self.prune and self.prune_mode == "positions" and self.fine_g:
             cand, self.last_prune, self.last_fine = M.match_coarse_pruned_fine_with_fallback(
-                R1, w.W_gemm, w.W_cell, w.W_fine, count, vpos, thr, T1, Kc1,
-                self.fine_g, self.prune_pos_cap, self.m2_cap, k, Wc)
+                R1, w.exact, w.W_cell, w.W_fine, count, vpos, thr, T1, Kc1,
+                self.fine_g, self.prune_pos_cap, self.m2_cap, k, Wc, self.plain)
             return cand, None, self.last_prune.overflow | self.last_fine.overflow
         if self.prune and self.prune_mode == "positions":
             cand, self.last_prune = M.match_coarse_pruned_with_fallback(
-                R1, w.W_gemm, w.W_cell, count, vpos, thr, T1, Kc1,
-                self.prune_pos_cap, k, Wc)
+                R1, w.exact, w.W_cell, count, vpos, thr, T1, Kc1,
+                self.prune_pos_cap, k, Wc, self.plain)
             return cand, None, self.last_prune.overflow
         if self.prune:
             n_local = bank.feats1.oris.shape[0]
             pr = self.last_prune = M.prune_plan_batched(
                 R1, w.W_cell, count, vpos, thr, T1, Kc1,
                 min(self.prune_cap, n_local), self.prune_pos_cap)
-            raw = M.coarse_scores_gemm_flat_batched_sub2(R1, w.W_gemm, pr.t_idx,
-                                                         pr.p_idx, T1, Kc1)
+            raw = M.coarse_scores_gemm_flat_batched_sub2(R1, w.exact, pr.t_idx,
+                                                         pr.p_idx, T1, Kc1, self.plain)
             cand = M.select_candidates_flat_sub2(raw, count, vpos, pr.t_idx, pr.t_keep,
                                                  pr.p_idx, pr.p_keep, thr, k, Wc)
             return cand, None, pr.overflow
-        raw = M.coarse_scores_gemm_flat_batched(R1, w.W_gemm, T1, Kc1)
+        raw = M.coarse_scores_gemm_flat_batched(R1, w.exact, T1, Kc1, self.plain)
         return M.select_candidates_flat(raw, count, vpos, thr, k, Wc), None, false
 
     def __call__(self, rgbs, depths, bank: ShardedBank):
@@ -449,15 +449,15 @@ make_sharded_detect_step = ShardedDetectStep
 class RowShardedMatcher:
     """One frame's rows sharded over mesh dim `axis` (the context-parallel
     analog), the bank replicated: fn(R1_loc (C, H1/n, W1), R0_loc (C,
-    H0/n, W0), W1 (the bank's exact GEMM weights), feats1, feats0) ->
+    H0/n, W0), W1 (the bank's exact-scorer weights), feats1, feats0) ->
     Matches (top_k,), equal on every rank of the line
     (make_row_sharded_matcher, the reference's name, builds one).  Each
     rank scores the window positions anchored in its stripe, after
     pulling the halo rows its windows and walks reach from the
     neighbouring stripes (one ppermute per stripe-height hop), walks in
     global coordinates, and the stripes' Matches merge into a global
-    top-k.  Level-0 stripes must be multiples of lcm(2*T1, T0).
-    `last_collectives` as in ShardedDetectStep."""
+    top-k.  Level-0 stripes must be multiples of lcm(2*T1, T0).  `plain`
+    and `last_collectives` as in ShardedDetectStep."""
 
     def __init__(self, mesh: DeviceMesh, axis: str, T1: int, Kc1: int, top_k: int,
                  threshold: float, T0: int = 5, E0: int = 96, coarse_margin: float = 5.0,
@@ -497,7 +497,7 @@ class RowShardedMatcher:
             h += 1
         return torch.cat(parts, dim=1)
 
-    def __call__(self, R1_loc, R0_loc, W1: M.MatmulWeight, feats1: M.LevelFeatures,
+    def __call__(self, R1_loc, R0_loc, W1: M.ExactWeights, feats1: M.LevelFeatures,
                  feats0: M.LevelFeatures) -> M.Matches:
         R1_loc, R0_loc = _local(R1_loc), _local(R0_loc)
         T0, T1, n = self.T0, self.T1, self.n
@@ -521,7 +521,7 @@ class RowShardedMatcher:
         R0x = torch.cat([self._pull(R0_loc, self.UP, False, idx, log), R0_loc,
                          self._pull(R0_loc, self.halo0, True, idx, log)], dim=1)
         Hc_loc = R1_loc.shape[1] // T1  # anchor cells owned by this stripe
-        raw = M.coarse_scores_gemm(R1x, W1, T1, self.Kc1)[:, :Hc_loc, :]
+        raw = M.coarse_scores_gemm(R1x, W1, T1, self.Kc1, self.plain)[:, :Hc_loc, :]
         Hc, Wc = raw.shape[1:]
         # Validity against the GLOBAL frame height: rows re-based.
         dev = raw.device
@@ -552,11 +552,12 @@ class RingDetectStep:
     one).  Frames are data-parallel over `axis` (each rank preprocesses
     its own once); the bank is sharded 1/n per rank and rotates: at step t
     rank d scores its frames against shard (d - t) mod n with the
-    exhaustive GEMM, walks them with that shard's level-0 features, folds
-    the result into a running top-k (ids + shard * n_local) and takes the
-    next shard from its ring neighbour, whose hop was posted before the
-    step's GEMM.  After n steps every frame has met every template with no
-    all-gather.  `last_collectives` as in ShardedDetectStep."""
+    exhaustive scores, walks them with that shard's level-0 features,
+    folds the result into a running top-k (ids + shard * n_local) and
+    takes the next shard from its ring neighbour, whose hop was posted
+    before the step's scores.  After n steps every frame has met every
+    template with no all-gather.  `plain` and `last_collectives` as in
+    ShardedDetectStep."""
 
     def __init__(self, mesh: DeviceMesh, axis: str, T1: int, Kc1: int, top_k: int,
                  threshold: float, T0: int = 5, E0: int = 96, use_depth: bool = False,
@@ -590,13 +591,12 @@ class RingDetectStep:
         log = self.last_collectives = {}
         W1, feats1, feats0 = bank.W1, bank.feats1, bank.feats0
         for t in range(n):
-            # The next shard goes on the wire before this step's GEMM.
+            # The next shard's features go on the wire before this step's
+            # scores; its exact weights are built from them on arrival.
             if t + 1 < n:
-                table = [] if W1.table is None else [W1.table]
-                nxt = _ppermute_start([W1.nk, *feats1, *feats0, *table], self.mesh,
-                                      self.axis, -1, log)
+                nxt = _ppermute_start([*feats1, *feats0], self.mesh, self.axis, -1, log)
             vpos = M.position_validity_flat(feats1.size, self.T1, Hc, Wc)
-            raw = M.coarse_scores_gemm_flat_batched(R1, W1, self.T1, self.Kc1)
+            raw = M.coarse_scores_gemm_flat_batched(R1, W1, self.T1, self.Kc1, self.plain)
             cand = M.select_candidates_flat(raw, feats1.count, vpos, self.sel_thr, k, Wc)
             ref = M.refine_candidates_opencv_batched(
                 R0, feats0, cand, self.T1, self.threshold, E0=self.E0, fine_T=self.T0,
@@ -613,8 +613,8 @@ class RingDetectStep:
                 valid=take(best.valid, ref.valid) & (vals >= thr))
             if t + 1 < n:
                 got = nxt.wait()
-                W1 = M.MatmulWeight(got[0], W1.n, *got[11:])
-                feats1, feats0 = M.LevelFeatures(*got[1:6]), M.LevelFeatures(*got[6:11])
+                feats1, feats0 = M.LevelFeatures(*got[:5]), M.LevelFeatures(*got[5:])
+                W1 = M.exact_weights(feats1, R1.shape[1], self.T1, self.Kc1)
         return best
 
 

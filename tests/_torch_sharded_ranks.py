@@ -104,7 +104,7 @@ def case_weights(mesh, feats1, feats0, bank_kw):
     bank = SM.make_sharded_bank(mesh, feats_of(feats1), feats_of(feats0), device="cpu",
                                 **bank_kw)
     w = bank.weights
-    out = {"W_gemm": w.W_gemm.nk.numpy(), "n": w.W_gemm.n, "W_cell": w.W_cell.nk.numpy(),
+    out = {"W_gemm": w.exact.dense.nk.numpy(), "n": w.exact.n, "W_cell": w.W_cell.nk.numpy(),
            "feats1": record(bank.feats1), "feats0": record(bank.feats0), "C": bank.C,
            "fine_g": bank.fine_g, "shard": mesh.get_local_rank("bank")}
     if w.W_fine is not None:
@@ -136,7 +136,7 @@ def case_put(mesh, rgbs, depths):
 
 def case_row(mesh, axis, R1, R0, feats1, feats0, C, T1, Kc1, mkw, device="cpu"):
     f1 = feats_of(feats1).to(device)
-    W1 = M.gemm_weight(f1, C, T1, Kc1)
+    W1 = M.exact_weights(f1, C, T1, Kc1)
     fn = SM.make_row_sharded_matcher(mesh, axis, T1, Kc1, **mkw)
     stripe = lambda R: torch.from_numpy(local_rows(np.moveaxis(R, 1, 0), mesh, axis)
                                         ).movedim(0, 1).contiguous().to(device)

@@ -93,7 +93,7 @@ def test_convert_carries_the_reference_bank(banks):
         JM.build_cell_weights_fine(jf, C, T1, Kc, G), jwg, jcnt, device="cpu")
     built = TM.build_bank_weights(tf, C, T1, Kc, G, GROUP)
     assert [w.n for w in carried[:4]] == [64, 64, 64, 4]
-    for a, b in zip(carried[:4], built[:4]):
+    for a, b in [(carried.exact.dense, built.exact.dense), *zip(carried[1:4], built[1:4])]:
         assert a.n == b.n and a.nk.shape[0] % 8 == 0
         assert torch.equal(a.nk, b.nk)
     assert torch.equal(carried.group_counts, built.group_counts)

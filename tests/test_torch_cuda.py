@@ -240,16 +240,21 @@ def test_batched_matcher_kernels_equal_plain(cuda):
 def _fullbin_operands(cuda):
     """batch32-fullbin's exact-scorer operands: the B=32 level-1 responses
     of S.bin_picking_batch's scenes (16 x 240 x 320, Kc 12) and the bank
-    tiled to 10,624 templates (16 of them dead rows) with its table."""
+    tiled to 10,624 templates (16 of them dead rows): its feature table,
+    and its dense one-hot operand built here for the int8 GEMM route
+    (the card's exact weights hold none)."""
     td = Detector.read(BANK)
     bank = td.bank(td.class_ids[0])
     tiled = bank.tile(-(-10240 // bank.num_templates), 10624)
     C, Kc = 8 * tiled.num_modalities, tiled.max_cell_extent(1)
-    W = TM.gemm_weight(tiled.merged_features(1).to(cuda), C, 8, Kc)
+    f1 = tiled.merged_features(1).to(cuda)
+    w = TM.exact_weights(f1, C, 8, Kc)
+    assert w.dense is None
+    dense = TM.MatmulWeight.from_kn(TM.build_gemm_weights(f1, C, 8, Kc))
     rgbs, deps, _ = S.bin_picking_batch(32, seed=3)
     _, R1 = TM.preprocess_frames_batched(torch.from_numpy(rgbs).to(cuda),
                                          torch.from_numpy(deps).to(cuda), use_depth=True)
-    return R1, W, Kc
+    return R1, w.table, dense, Kc
 
 
 @pytest.mark.requires_cuda
@@ -259,25 +264,25 @@ def test_exact_scores_kernel_at_the_fullbin_shapes(cuda, rows):
     batch32-fullbin's shapes: all 38,400 cells of the batch (the
     exhaustive call) or a frame-major 1152-row pool list (the exact tier's
     36 rows a frame), over 10,624 templates; bit for bit."""
-    R1, W, Kc = _fullbin_operands(cuda)
+    R1, table, dense, Kc = _fullbin_operands(cuda)
     B, _, H, Wd = R1.shape
     P = (H // 8) * (Wd // 8)
     tracing.reset()
     if rows == "every_cell":
-        got = CK.exact_scores(R1, W.table, 8, Kc)
-        gemm = TM.int8_mm(TM._gemm_patches(R1, 8, Kc), W)
+        got = CK.exact_scores(R1, table, 8, Kc)
+        gemm = TM.int8_mm(TM._gemm_patches(R1, 8, Kc), dense)
         frame = pos = None
     else:
         g = torch.Generator().manual_seed(21)
         frame = torch.sort(torch.randint(0, B, (1152,), generator=g)).values.to(cuda)
         pos = torch.randint(0, P, (1152,), generator=g).to(cuda)
-        got = CK.exact_scores(R1, W.table, 8, Kc, frame, pos)
-        gemm = TM.int8_mm(TM._survivor_patches(R1, frame, pos, 8, Kc), W)
+        got = CK.exact_scores(R1, table, 8, Kc, frame, pos)
+        gemm = TM.int8_mm(TM._survivor_patches(R1, frame, pos, 8, Kc), dense)
     assert tracing.launches()["exact_scores"] == 1
     assert got.shape == gemm.shape == (gemm.shape[0], 10624)
     assert torch.equal(got, gemm)
     del gemm
-    assert torch.equal(got, CK.exact_scores_plain(R1, W.table, 8, Kc, frame, pos))
+    assert torch.equal(got, CK.exact_scores_plain(R1, table, 8, Kc, frame, pos))
     assert int(got.max()) > 0 and int(got[:, -16:].abs().sum()) == 0  # dead rows score 0
 
 
@@ -322,35 +327,63 @@ EXACT_ROUTES = {
 }
 
 
+def _exact_route_kw(B: int, route: str) -> dict:
+    kw = dict(top_k=64, prune=True, prune_mode="pooled", fine_g=4, group_bound=16,
+              pool_coarse=B * 300, pool_fine=B * 300, pool_group=B * 300, sel_row_cap=300)
+    kw.update(EXACT_ROUTES[route][0])
+    return kw
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("route", list(EXACT_ROUTES))
 def test_pooled_matcher_scores_through_xs_alone(cuda, monkeypatch, route):
     """The pooled matcher on the card launches XS once for its exact tier
-    and once for its exhaustive fallback, never torch._int_mm with the
-    exact weights, and matches the CPU matcher (the int8 GEMM) on every
-    slot."""
+    and once for its exhaustive fallback, holds no dense one-hot operand,
+    never runs torch._int_mm at the exact scorer's contraction, and
+    matches the CPU matcher (the int8 GEMM) on every slot."""
     td = Detector.read(BANK)
     cid = td.class_ids[0]
     B = 2
-    extra, launches, fallback = EXACT_ROUTES[route]
-    kw = dict(top_k=64, prune=True, prune_mode="pooled", fine_g=4, group_bound=16,
-              pool_coarse=B * 300, pool_fine=B * 300, pool_group=B * 300, sel_row_cap=300)
-    kw.update(extra)
+    _, launches, fallback = EXACT_ROUTES[route]
+    kw = _exact_route_kw(B, route)
     rgbs, deps = S.golden_crops()
     m = BatchedMatcher(td, cid, 70.0, B, device=cuda, **kw)
-    exact_nk = m.weights.W_gemm.nk.data_ptr()
+    assert m.weights.exact.dense is None
+    k_exact = 16 * 8 * 8 * m.Kc1 ** 2  # C * T * T * Kc * Kc
     seen = []
     int8_mm = TM.int8_mm
-    monkeypatch.setattr(TM, "int8_mm", lambda a, w: (seen.append(w.nk.data_ptr()),
+    monkeypatch.setattr(TM, "int8_mm", lambda a, w: (seen.append(w.nk.shape[1]),
                                                      int8_mm(a, w))[1])
     tracing.reset()
     got = m.match_batch(rgbs, deps)
     assert tracing.launches()["exact_scores"] == launches
-    assert seen and exact_nk not in seen
+    assert seen and k_exact not in seen
     assert bool(m.last_pool.fallback) == fallback
     want = BatchedMatcher(td, cid, 70.0, B, device="cpu", **kw).match_batch(rgbs, deps)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.requires_cuda
+def test_plain_pooled_matcher_launches_no_kernel(cuda):
+    """`plain=True` on the card: the pooled matcher's exact tier and its
+    exhaustive fallback take XS's plain twin, so no route of the batch
+    launches a hand-written kernel, and each equals the kernel path on
+    every slot."""
+    td = Detector.read(BANK)
+    cid = td.class_ids[0]
+    B = 2
+    rgbs, deps = S.golden_crops()
+    for route, (_, _, fallback) in EXACT_ROUTES.items():
+        kw = _exact_route_kw(B, route)
+        want = BatchedMatcher(td, cid, 70.0, B, device=cuda, **kw).match_batch(rgbs, deps)
+        m = BatchedMatcher(td, cid, 70.0, B, device=cuda, plain=True, **kw)
+        tracing.reset()
+        got = m.match_batch(rgbs, deps)
+        assert not any(tracing.launches().values()), (route, tracing.launches())
+        assert bool(m.last_pool.fallback) == fallback, route
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), route
 
 
 # keyword arguments of BatchedMatcher(prune=True) -> (coarse, fine) overflow;
@@ -960,7 +993,7 @@ def test_gather_engine_on_the_card_equals_golden(cuda):
     R1 = torch.cat([pyr.grad_r1, pyr.norm_r1])
     raw = TM.coarse_scores(R1, f1, T1, Kc)
     assert torch.equal(TM.coarse_scores_conv(R1, bank.dense_weights(1).to(cuda), T1), raw)
-    assert torch.equal(TM.coarse_scores_gemm(R1, dets["auto"]._gemm_weight(cid), T1, Kc), raw)
+    assert torch.equal(TM.coarse_scores_gemm(R1, dets["auto"]._exact_weights(cid), T1, Kc), raw)
     vpos = TM.position_validity(f1.size, T1, *raw.shape[1:])
     a = TM.select_candidates_approx(raw, f1.count, vpos, thr - 5.0, 512)
     b = TM.select_candidates(raw, f1.count, vpos, thr - 5.0, 512)

@@ -98,32 +98,32 @@ def test_exact_scores_plain_equals_the_gemm(name):
     f, Rb, Kc = _case(name)
     B, _, H, W = Rb.shape
     P = (H // T1) * (W // T1)
-    W_gemm = TM.gemm_weight(f, C, T1, Kc)
-    every = TM.int8_mm(TM._gemm_patches(Rb, T1, Kc), W_gemm)
-    got = CK.exact_scores_plain(Rb, W_gemm.table, T1, Kc)
+    w = TM.exact_weights(f, C, T1, Kc)
+    every = TM.int8_mm(TM._gemm_patches(Rb, T1, Kc), w.dense)
+    got = CK.exact_scores_plain(Rb, w.table, T1, Kc)
     assert got.dtype == torch.int32 and torch.equal(got, every)
-    assert torch.equal(CK.exact_scores(Rb, W_gemm.table, T1, Kc), every)  # CPU: the twin
+    assert torch.equal(CK.exact_scores(Rb, w.table, T1, Kc), every)  # CPU: the twin
     frame, pos = _pool_rows(Rb, np.random.default_rng(3))
-    pooled = TM.int8_mm(TM._survivor_patches(Rb, frame, pos, T1, Kc), W_gemm)
-    assert torch.equal(CK.exact_scores_plain(Rb, W_gemm.table, T1, Kc, frame, pos), pooled)
+    pooled = TM.int8_mm(TM._survivor_patches(Rb, frame, pos, T1, Kc), w.dense)
+    assert torch.equal(CK.exact_scores_plain(Rb, w.table, T1, Kc, frame, pos), pooled)
     assert torch.equal(pooled, every[frame * P + pos])
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_gemm_table_is_the_weights_nonzeros(name):
     f, _, Kc = _case(name)
-    W_gemm = TM.gemm_weight(f, C, T1, Kc)
-    table = W_gemm.table
+    table = TM.build_gemm_table(f, C, T1, Kc)
+    dense = TM.build_gemm_weights(f, C, T1, Kc).t()  # (N, K), K-major
+    N = f.oris.shape[0]
     assert table.dtype == torch.int32 and table.shape[1] % 4 == 0
-    assert table.shape[0] == W_gemm.n == f.oris.shape[0]
-    dense = W_gemm.nk[:W_gemm.n].to(torch.int64)
-    for n in range(W_gemm.n):
+    assert table.shape[0] == dense.shape[0] == N
+    for n in range(N):
         rows = table[n][table[n] >= 0].to(torch.int64)
         counts = torch.bincount(rows, minlength=dense.shape[1])
-        assert torch.equal(counts, dense[n]), n
+        assert torch.equal(counts, dense[n].to(torch.int64)), n
         assert int((table[n] >= 0).sum()) == int(f.count[n])
     # The table rebuilt from the dense weights holds the same entries.
-    back = TM.gemm_table_from_nk(W_gemm.nk, W_gemm.n)
+    back = TM.gemm_table_from_nk(dense, N)
     srt = lambda t: torch.sort(torch.where(t >= 0, t, 2**31 - 1), dim=1).values
     width = min(back.shape[1], table.shape[1])
     assert torch.equal(srt(back)[:, :width], srt(table)[:, :width])
@@ -131,31 +131,47 @@ def test_gemm_table_is_the_weights_nonzeros(name):
     assert bool((srt(table)[:, width:] == 2**31 - 1).all())
 
 
-@pytest.mark.parametrize("name", ["weights", "gathered", "positional", "missing_table"])
-def test_matmul_weight_carries_the_table(name):
+@pytest.mark.parametrize("name", ["bank_weights", "rows", "cpu_dense", "from_dense"])
+def test_exact_weights(name):
+    """ExactWeights, the exact scorer's one weights type: the bank builder
+    holds exact_weights' weights; rows() scores as the sub-bank does; a
+    CPU bank carries the dense operand, whose GEMM is the plain twin's
+    sum; and the weights rebuilt from the dense counts score the same."""
     f, Rb, Kc = _case("dead_slots")
-    W_gemm = TM.gemm_weight(f, C, T1, Kc)
-    if name == "weights":
+    w = TM.exact_weights(f, C, T1, Kc)
+    assert w.n == w.table.shape[0] == f.oris.shape[0]
+    frame, pos = _pool_rows(Rb, np.random.default_rng(5))
+    if name == "bank_weights":
         bw = TM.build_bank_weights(f, C, T1, Kc, 4, group=8)
-        assert torch.equal(bw.W_gemm.nk, W_gemm.nk) and torch.equal(bw.W_gemm.table,
-                                                                    W_gemm.table)
-        assert bw.W_cell.table is None and bw.W_fine.table is None
-    elif name == "gathered":
+        assert bw.exact.n == w.n and torch.equal(bw.exact.table, w.table)
+        assert torch.equal(bw.exact.dense.nk, w.dense.nk) and bw.exact.dense.n == w.n
+    elif name == "rows":
         idx = torch.tensor([5, 0, 17, 5], dtype=torch.int32)
-        sub = TM._gathered_weight(W_gemm, idx)
-        assert torch.equal(sub.table, W_gemm.table[idx.long()])
-        assert torch.equal(sub.nk[:4], W_gemm.nk[idx.long()])
-        raw = TM.coarse_scores_gemm_flat_batched_sub(Rb, W_gemm, idx, T1, Kc)
-        want = CK.exact_scores_plain(Rb, sub.table, T1, Kc).reshape(raw.shape)
-        assert torch.equal(raw, want)
-    elif name == "positional":
-        w = TM.MatmulWeight(W_gemm.nk, W_gemm.n)  # the two-field form still builds
-        assert w.table is None and len(w) == 3 and w.n == W_gemm.n
-        assert TM.MatmulWeight.from_nk(W_gemm.nk[:W_gemm.n]).table is None
+        sub = w.rows(idx)
+        assert sub.n == 4 and torch.equal(sub.table, w.table[idx.long()])
+        assert sub.dense.n == 4 and torch.equal(sub.dense.nk[:4], w.dense.nk[idx.long()])
+        own = TM.exact_weights(TM.LevelFeatures(*(a[idx.long()] for a in f)), C, T1, Kc)
+        raw = TM.coarse_scores_gemm_flat_batched_sub(Rb, w, idx, T1, Kc)
+        assert torch.equal(raw, TM.coarse_scores_gemm_flat_batched(Rb, own, T1, Kc))
+        assert torch.equal(TM.exact_scores(Rb, sub, T1, Kc, frame, pos),
+                           CK.exact_scores_plain(Rb, own.table, T1, Kc, frame, pos))
+    elif name == "cpu_dense":
+        assert w.dense is not None and w.dense.n == w.n and w.dense.nk.shape[0] % 8 == 0
+        for fr, po in ((None, None), (frame, pos)):
+            want = CK.exact_scores_plain(Rb, w.table, T1, Kc, fr, po)
+            for plain in (False, True):  # the CPU takes the GEMM either way
+                assert torch.equal(TM.exact_scores(Rb, w, T1, Kc, fr, po, plain), want)
+        assert int(want.max()) > 0
     else:
-        with pytest.raises(ValueError, match="feature table"):
-            TM._exact_table(TM.MatmulWeight(W_gemm.nk, W_gemm.n))
-        assert TM._exact_table(W_gemm) is W_gemm.table
+        back = TM.exact_weights_from_dense(w.dense.nk, w.n)
+        assert back.n == w.n and torch.equal(back.dense.nk, w.dense.nk)
+        srt = lambda t: torch.sort(torch.where(t >= 0, t, 2**31 - 1), dim=1).values
+        width = back.table.shape[1]
+        assert torch.equal(srt(back.table), srt(w.table)[:, :width])
+        for fr, po in ((None, None), (frame, pos)):
+            want = TM.exact_scores(Rb, w, T1, Kc, fr, po)
+            assert torch.equal(TM.exact_scores(Rb, back, T1, Kc, fr, po), want)
+            assert torch.equal(CK.exact_scores_plain(Rb, back.table, T1, Kc, fr, po), want)
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 160, 160), (1, 3, 83, 101), (2, 2, 240, 320)])

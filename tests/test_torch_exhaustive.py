@@ -106,7 +106,7 @@ def test_coarse_scores_gemm_flat(detectors):
     _, R1 = JM.stack_modalities(pyr, True)
     Kc = jb.max_cell_extent(1)
     want = JM.coarse_scores_gemm_flat(R1, jb.gemm_weights(1), 8, Kc)
-    W = TM.MatmulWeight.from_kn(TM.build_gemm_weights(tb.merged_features(1), 16, 8, Kc))
+    W = TM.exact_weights(tb.merged_features(1), 16, 8, Kc)
     got = TM.coarse_scores_gemm_flat(torch.from_numpy(np.array(R1)), W, 8, Kc)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert int(got.max()) > 0

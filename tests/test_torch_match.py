@@ -81,7 +81,7 @@ def test_pooled_matcher_equals_reference(case):
     tvpos = TM.position_validity_flat(tf.size, T1, Hc, Wc)
     np.testing.assert_array_equal(tvpos.numpy(), np.asarray(vpos))
     got, got_nv, got_stats = TM.match_pooled_fine_with_fallback(
-        torch.from_numpy(Rb), w.W_gemm, w.W_cell, w.W_fine, tf.count, tvpos,
+        torch.from_numpy(Rb), w.exact, w.W_cell, w.W_fine, tf.count, tvpos,
         thr, T1, KC, G, pool1, pool2, top_k, Wc, r_cap=r_cap, **tkw)
 
     for name, a, b in zip(cands._fields, got, cands):

@@ -107,7 +107,7 @@ def test_coarse_merged_modalities(rng, engine):
     if engine == "conv":
         got = TM.coarse_scores_conv(R, TM.build_dense_weights(merged, 16, 32), 8)
     else:
-        W = TM.MatmulWeight.from_kn(TM.build_gemm_weights(merged, 16, 8, 5))
+        W = TM.exact_weights(merged, 16, 8, 5)
         got = TM.coarse_scores_gemm(R, W, 8, 5)
     assert_eq(got, ref)
 
@@ -117,7 +117,7 @@ def test_gemm_coarse_equals_gather(rng):
     jf, tf = random_bank(rng, 17, fmax=24, extent=30)
     R = random_R(rng, 8, 72, 96)
     Kc = 30 // T + 1
-    W = TM.MatmulWeight.from_kn(TM.build_gemm_weights(tf, 8, T, Kc))
+    W = TM.exact_weights(tf, 8, T, Kc)
     assert_eq(TM.coarse_scores_gemm(t(R), W, T, Kc), JM.coarse_scores(j(R), jf, T, Kc))
 
 
@@ -197,7 +197,7 @@ def test_coarse_engines_on_a_golden_frame(subset):
     gather = TM.coarse_scores(R1, f1, 8, Kc)
     assert_eq(gather, JM.coarse_scores(j(R1.numpy()), jb.merged_features(1), 8, Kc))
     assert_eq(TM.coarse_scores_conv(R1, tb.dense_weights(1), 8), gather.numpy())
-    W = TM.MatmulWeight.from_kn(TM.build_gemm_weights(f1, 16, 8, Kc))
+    W = TM.exact_weights(f1, 16, 8, Kc)
     assert_eq(TM.coarse_scores_gemm(R1, W, 8, Kc), gather.numpy())
     assert int(gather.max()) > 0
 
@@ -234,7 +234,7 @@ def test_detector_engines(serving_detectors, engine):
         for name, a, b in zip(want._fields, got, want):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
     assert int(got.valid.sum()) == 0 and int(want.valid.sum()) == 0  # the empty frame
-    assert (td._gemm == {}) == (engine in ("gather", "other"))
+    assert (td._exact == {}) == (engine in ("gather", "other"))
 
 
 @pytest.mark.parametrize("frame", [0, 3])

@@ -103,7 +103,7 @@ def test_match_pooled_multiclass_merge_walk_split(setup, case):
         Wc_ = M.build_cell_weights(f1, 8, T1, KC)
         Wf = M.build_cell_weights_fine(f1, 8, T1, KC, 4)
         if pkg == "t":
-            Wg, Wc_, Wf = (TM.MatmulWeight.from_kn(Wg), TM.MatmulWeight.from_nk(Wc_),
+            Wg, Wc_, Wf = (TM.exact_weights(f1, 8, T1, KC), TM.MatmulWeight.from_nk(Wc_),
                            TM.MatmulWeight.from_nk(Wf))
         vpos = M.position_validity_flat(f1.size, T1, HC, WC)
         cands, nvs, stats = M.match_pooled_multiclass(

@@ -31,6 +31,7 @@ from test_prune import C, KC, T1, _bank, _frames, _plant  # noqa: E402
 
 from linemod_pose_estimation_tpu.ops import match as JM  # noqa: E402
 from linemod_pose_estimation_tpu_torch import convert  # noqa: E402
+from linemod_pose_estimation_tpu_torch.ops import features as TF  # noqa: E402
 from linemod_pose_estimation_tpu_torch.ops import match as TM  # noqa: E402
 
 G = 4
@@ -147,7 +148,7 @@ def test_survivor_patch_gathers(kind):
     for use_pallas in (False, True):
         want = JM.assemble_survivor_patches(s.jR, jp, T1, KC, use_pallas=use_pallas)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    L4 = TM.linearize_responses_lanes(s.tR.to(torch.int8), T1, KC)
+    L4 = TF.linearize_responses_lanes(s.tR.to(torch.int8), T1, KC)
     onehot = TM.gather_cell_patches_onehot(L4, pp.p_idx, KC, s.Wc)
     assert torch.equal(onehot, got)
     want = JM.gather_cell_patches_onehot(jnp.asarray(L4.numpy()), jp, KC, s.Wc)
@@ -161,7 +162,7 @@ def test_survivor_gemm_and_fine_bound(m_cap):
     pp = TM.prune_positions_batched(s.tR, s.tW.W_cell, s.tf.count, s.tvpos, THR,
                                     T1, KC, m_cap)
     jp = jnp.asarray(pp.p_idx.numpy())
-    raw = TM.coarse_scores_gemm_flat_batched_pos(s.tR, s.tW.W_gemm, pp.p_idx, T1, KC)
+    raw = TM.coarse_scores_gemm_flat_batched_pos(s.tR, s.tW.exact, pp.p_idx, T1, KC)
     want = JM.coarse_scores_gemm_flat_batched_pos(s.jR, s.jW[0], jp, T1, KC)
     np.testing.assert_array_equal(raw.numpy(), np.asarray(want))
     ubf = TM.fine_ub_at_survivors(s.tR, pp.p_idx, s.tW.W_fine, T1, KC, G)
@@ -207,7 +208,7 @@ FINE_CASES = {
 
 
 def _exhaustive_valid_sets(s: Scene, threshold=THR):
-    raw = TM.coarse_scores_gemm_flat_batched(s.tR, s.tW.W_gemm, T1, KC)
+    raw = TM.coarse_scores_gemm_flat_batched(s.tR, s.tW.exact, T1, KC)
     ex = TM.select_candidates_flat(raw, s.tf.count, s.tvpos, threshold, 4 * TOP_K, s.Wc)
     return [_valid_set(ex, b) for b in range(s.B)]
 
@@ -225,7 +226,7 @@ def test_match_coarse_pruned_fine_with_fallback(case):
     jc, jpp, jfp = JM.match_coarse_pruned_fine_with_fallback(
         s.jR, *s.jW, s.jf.count, s.jvpos, THR, T1, KC, G, m_cap, m2_cap, TOP_K, s.Wc)
     tc, tpp, tfp = TM.match_coarse_pruned_fine_with_fallback(
-        s.tR, s.tW.W_gemm, s.tW.W_cell, s.tW.W_fine, s.tf.count, s.tvpos, THR, T1,
+        s.tR, s.tW.exact, s.tW.W_cell, s.tW.W_fine, s.tf.count, s.tvpos, THR, T1,
         KC, G, m_cap, m2_cap, TOP_K, s.Wc)
     _eq(tc, jc, "cands.")
     _eq(tpp, jpp, "prune.")
@@ -250,7 +251,7 @@ def test_match_coarse_pruned_with_fallback(case, kind, m_cap):
     jc, jpp = JM.match_coarse_pruned_with_fallback(
         s.jR, s.jW[0], s.jW[1], s.jf.count, s.jvpos, THR, T1, KC, m_cap, TOP_K, s.Wc)
     tc, tpp = TM.match_coarse_pruned_with_fallback(
-        s.tR, s.tW.W_gemm, s.tW.W_cell, s.tf.count, s.tvpos, THR, T1, KC, m_cap,
+        s.tR, s.tW.exact, s.tW.W_cell, s.tf.count, s.tvpos, THR, T1, KC, m_cap,
         TOP_K, s.Wc)
     _eq(tc, jc, "cands.")
     _eq(tpp, jpp, "prune.")
@@ -262,7 +263,7 @@ def test_fine_g_must_divide_T():
     s = scene("single")
     with pytest.raises(ValueError, match="must divide"):
         TM.match_coarse_pruned_fine_with_fallback(
-            s.tR, s.tW.W_gemm, s.tW.W_cell, s.tW.W_fine, s.tf.count, s.tvpos, THR,
+            s.tR, s.tW.exact, s.tW.W_cell, s.tW.W_fine, s.tf.count, s.tvpos, THR,
             T1, KC, 3, 8, 4, TOP_K, s.Wc)
 
 
@@ -282,7 +283,7 @@ def test_match_coarse_pruned_multiclass(case):
         s.jR, *s.jW, s.jf.count, s.jvpos, SLICES, THRS, T1, KC, m_cap, TOP_K, s.Wc,
         g=g, m2_cap=m2_cap)
     tc, tpp = TM.match_coarse_pruned_multiclass(
-        s.tR, s.tW.W_gemm, s.tW.W_cell, s.tW.W_fine, s.tf.count, s.tvpos, SLICES,
+        s.tR, s.tW.exact, s.tW.W_cell, s.tW.W_fine, s.tf.count, s.tvpos, SLICES,
         THRS, T1, KC, m_cap, TOP_K, s.Wc, g=g, m2_cap=m2_cap)
     assert len(tc) == len(jc) == 2
     for i in range(2):
@@ -298,9 +299,9 @@ def test_match_coarse_pruned_multiclass(case):
 def test_multiclass_no_w_fine_skips_the_fine_stage():
     s = scene("sparse")
     args = (s.tf.count, s.tvpos, SLICES, THRS, T1, KC, 64, TOP_K, s.Wc)
-    a, _ = TM.match_coarse_pruned_multiclass(s.tR, s.tW.W_gemm, s.tW.W_cell, None,
+    a, _ = TM.match_coarse_pruned_multiclass(s.tR, s.tW.exact, s.tW.W_cell, None,
                                              *args, g=G)
-    b, _ = TM.match_coarse_pruned_multiclass(s.tR, s.tW.W_gemm, s.tW.W_cell,
+    b, _ = TM.match_coarse_pruned_multiclass(s.tR, s.tW.exact, s.tW.W_cell,
                                              s.tW.W_fine, *args, g=None)
     for x, y in zip(a, b):
         for u, v in zip(x, y):
@@ -309,7 +310,7 @@ def test_multiclass_no_w_fine_skips_the_fine_stage():
 
 def test_multiclass_g_must_divide_T():
     s = scene("single")
-    for M_, R, W, f, v in ((TM, s.tR, (s.tW.W_gemm, s.tW.W_cell, s.tW.W_fine), s.tf,
+    for M_, R, W, f, v in ((TM, s.tR, (s.tW.exact, s.tW.W_cell, s.tW.W_fine), s.tf,
                             s.tvpos), (JM, s.jR, s.jW, s.jf, s.jvpos)):
         with pytest.raises(ValueError, match="g=3 must divide T=8"):
             M_.match_coarse_pruned_multiclass(R, *W, f.count, v, SLICES, THRS, T1, KC,
@@ -341,7 +342,7 @@ def test_prune_templates_batched_and_sub(kind, thr, n_cap):
     _eq(got, want)
     assert bool(got.overflow) == (n_cap < 40)
     assert int(got.keep.sum()) == min(n_cap, int(got.n_survivors)) > 0
-    raw = TM.coarse_scores_gemm_flat_batched_sub(s.tR, s.tW.W_gemm, got.idx, T1, KC)
+    raw = TM.coarse_scores_gemm_flat_batched_sub(s.tR, s.tW.exact, got.idx, T1, KC)
     jraw = JM.coarse_scores_gemm_flat_batched_sub(s.jR, jnp.asarray(s.jW[0]).T,
                                                   want.idx, T1, KC)
     np.testing.assert_array_equal(raw.numpy(), np.asarray(jraw))
@@ -375,7 +376,7 @@ def test_prune_plan_batched_and_sub2(case):
     # over capacity the highest-bound entries are kept, every slot live
     if int(got.n_survivors) > n_cap:
         assert bool(got.t_keep.all())
-    raw = TM.coarse_scores_gemm_flat_batched_sub2(s.tR, s.tW.W_gemm, got.t_idx,
+    raw = TM.coarse_scores_gemm_flat_batched_sub2(s.tR, s.tW.exact, got.t_idx,
                                                   got.p_idx, T1, KC)
     jraw = JM.coarse_scores_gemm_flat_batched_sub2(
         s.jR, jnp.asarray(s.jW[0]).T, want.t_idx, want.p_idx, T1, KC)

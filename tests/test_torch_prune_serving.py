@@ -176,8 +176,7 @@ def test_constructor_rules(detectors):
                 cls(det, cid, THR, 2, prune=True, **kw, **extra)
     with pytest.raises(ValueError, match="prune_mode"):
         BatchedMatcher(td, cid, THR, 2, prune=True, prune_mode="rows", device="cpu")
-    m = BatchedMatcher(td, cid, THR, 2, prune=True, prune_pos_cap=9, dot_m_chunk=4096,
-                       device="cpu")
+    m = BatchedMatcher(td, cid, THR, 2, prune=True, prune_pos_cap=9, device="cpu")
     assert (m.fine_pos_cap, m.prune_cap) == (4, 64)
     assert BatchedMatcher(td, cid, THR, 2, prune=True, prune_pos_cap=1,
                           device="cpu").fine_pos_cap == 1

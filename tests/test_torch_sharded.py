@@ -422,7 +422,7 @@ def test_shard_weights_equal_rows_of_full_bank(runs):
         assert got["shard"] == c and got["C"] == 8 and got["fine_g"] == 4
         rows = slice(c * n_local, (c + 1) * n_local)
         assert got["n"] == n_local
-        np.testing.assert_array_equal(got["W_gemm"][:n_local], full.W_gemm.nk[rows].numpy())
+        np.testing.assert_array_equal(got["W_gemm"][:n_local], full.exact.dense.nk[rows].numpy())
         assert not got["W_gemm"][n_local:].any()  # padding to 8 rows is dead
         np.testing.assert_array_equal(got["W_cell"][:n_local], full.W_cell.nk[rows].numpy())
         np.testing.assert_array_equal(got["W_fine"][:n_local], full.W_fine.nk[rows].numpy())
@@ -481,8 +481,10 @@ def test_bank_converters_equal_the_ports_shards():
         got = convert.sharded_bank_from_numpy(**ref, rank=r, n_shards=2, device="cpu")
         s1, s0 = SM._shard_rows(t1, r, 2, "cpu"), SM._shard_rows(t0, r, 2, "cpu")
         want = TM.build_bank_weights(s1, 8, T1, KC1, 4)
-        for name in ("W_gemm", "W_cell", "W_fine"):
+        for name in ("exact", "W_cell", "W_fine"):
             a, b = getattr(got.weights, name), getattr(want, name)
+            if name == "exact":
+                a, b = a.dense, b.dense
             assert a.n == b.n and np.array_equal(a.nk.numpy(), b.nk.numpy()), name
         for a, b in zip((*got.feats1, *got.feats0), (*s1, *s0)):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
@@ -497,8 +499,8 @@ def test_bank_converters_equal_the_ports_shards():
         got = convert.ring_bank_from_numpy(np.asarray(rb.W1), tup(rb.feats1), tup(rb.feats0),
                                            rank=r, n_shards=WORLD, device="cpu")
         s1 = SM._shard_rows(t1, r, WORLD, "cpu")
-        want = TM.MatmulWeight.from_kn(TM.build_gemm_weights(s1, 8, T1, KC1))
-        assert got.W1.n == want.n == 4 and torch_equal(got.W1.nk, want.nk)
+        want = TM.exact_weights(s1, 8, T1, KC1)
+        assert got.W1.n == want.n == 4 and torch_equal(got.W1.dense.nk, want.dense.nk)
         for a, b in zip(got.feats1, s1):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
 
