@@ -29,12 +29,17 @@ line each:
       matcher's exact weights without a dense one-hot operand,
       PooledStats, found rate, batch time;
   2c. the same batch with pool_coarse forced tiny: the exhaustive fallback
-      runs and the Matches equal 2b's;
+      runs (XS and TK once each) and the Matches equal 2b's;
   2d. XS (the exact coarse scorer) against its plain twin and the int8
       GEMM route it replaced, bitwise, on 2b's level-1 responses and
       tiled bank: every cell of the batch (the fallback's call) and a
       frame-major 1152-row list (the exact tier's 36 rows a frame), timed
       beside its bound, the plain twin and that route (library_ms);
+  2e. TK (the exhaustive select's top-k) against its plain twin, bitwise,
+      at batch32-fullbin's shape (B=32 six-object frames, 1200 cells x
+      10,624 templates, k 128) on XS's scores of them, timed beside its
+      bound, the plain twin and the library call at its core (torch.topk
+      over the batch's unique int64 keys, built beforehand: library_ms);
   3. K3 against its plain version on 2b's candidate sets, bitwise, timed
      with its bound; then on odd plans (utils/kernel_cases.py: frames
      with n_valid = 0, walked slots with every feature dead, F = 37 and
@@ -212,8 +217,9 @@ line each:
 Then a kernels summary line (per kernel: launches on its path, the
 summed time, plain time and bound of those launches at their shapes,
 what bounds it, the share of the bound, and library_ms: for XS the int8
-GEMM route it replaced, for the others null, as no single PyTorch call
-computes them; the other timed shapes are rows of its `shapes`), the card
+GEMM route it replaced, for TK torch.topk over prebuilt keys, for the
+others null, as no single PyTorch call computes them; the other timed
+shapes are rows of its `shapes`), the card
 line, and last
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing the last line.  It needs CUDA: without a
@@ -225,8 +231,9 @@ card it exits 2 before doing anything.
     python3 chip_smoke.py --only aux
     python3 chip_smoke.py --only parallel
     python3 chip_smoke.py --only exact
+    python3 chip_smoke.py --only select
 
-build the kernels and run phase 10, 11, 12, 13, 14 or 2d alone (a quick
+build the kernels and run phase 10, 11, 12, 13, 14, 2d or 2e alone (a quick
 check on a card); they print no summary and no last line.
 """
 
@@ -320,10 +327,20 @@ KERNELS = {
     "exact_scores": ("XS", "linemod_pose_estimation_tpu_torch/csrc/exact_scores.cu",
                      "none (the reference's exact coarse scores are an XLA dot_general "
                      "over one-hot weights: linemod_pose_estimation_tpu/ops/match.py:274)"),
+    "select_topk": ("TK", "linemod_pose_estimation_tpu_torch/csrc/select_topk.cu",
+                    "none (the reference selects with jax.lax.top_k: "
+                    "linemod_pose_estimation_tpu/ops/match.py:2006)"),
+}
+# library_ms of the kernels that have one: what that call is
+LIBRARY_NOTES = {
+    "exact_scores": "the int8 GEMM route it replaced: the patch rows, torch._int_mm",
+    "select_topk": "torch.topk over the batch's (B, P*N) unique int64 keys, built beforehand",
 }
 # XS's rows in phase 2d: a frame-major list of 36 rows a frame (the exact
 # tier's fine pool at B=32), drawn from this seed.
 EXACT_POOL_ROWS, EXACT_POOL_SEED = 1152, 21
+# TK's frames in phase 2e: six planted views each, drawn from this seed.
+SELECT_SEED = 7
 
 
 def emit(phase: str, **kw) -> None:
@@ -530,6 +547,50 @@ def exact_phase(dev: torch.device, perf: dict, matcher=None, rgbs=None, deps=Non
         R1, exact.table, dense, T, Kc, frame, pos)
     del dense
     emit("exact_vs_plain", XS=perf["exact_scores"])
+
+
+def select_phase(dev: torch.device, perf: dict) -> None:
+    """Phase 2e: TK against its plain twin on XS's scores of 32 six-object
+    frames over the tiled bank (batch32-fullbin's shape), both timed, with
+    the bound and the library call at the plain chain's core."""
+    from linemod_pose_estimation_tpu_torch.models.detector import Detector
+    from linemod_pose_estimation_tpu_torch.models.serving import BatchedMatcher, slice_settings
+    from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
+    from linemod_pose_estimation_tpu_torch.ops import match as M
+    from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+    from linemod_pose_estimation_tpu_torch.utils import scenes as S
+
+    det = Detector.read(BANK)
+    cid = det.class_ids[0]
+    bank = det.bank(cid)
+    det.attach_bank(bank.tile(-(-10240 // bank.num_templates), TILE_TO))
+    m = BatchedMatcher(det, cid, THRESHOLD, B_MAIN, device=dev, **slice_settings(B_MAIN))
+    rgbs, deps, _ = S.bin_picking_batch(B_MAIN, seed=SELECT_SEED, objects=6)
+    _, R1 = M.preprocess_frames_batched(torch.from_numpy(rgbs).to(dev),
+                                        torch.from_numpy(deps).to(dev), use_depth=True)
+    Hc, Wc = R1.shape[2] // m.T1, R1.shape[3] // m.T1
+    raw = M.coarse_scores_gemm_flat_batched(R1, m.weights.exact, m.T1, m.Kc1)
+    del R1
+    B, P, N = raw.shape
+    vpos, scale, k = m._vpos_flat(Hc, Wc), M._sim_scale(m.feats1.count), m.top_k
+    kern = lambda: CK.select_topk(raw, scale, vpos, k)
+    plain = lambda: CK.select_topk_plain(raw, scale, vpos, k)
+    (vals, idx), (pv, pi) = kern(), plain()
+    require(torch.equal(vals.view(torch.int32), pv.view(torch.int32)) and torch.equal(idx, pi),
+            "TK differs from its plain twin at the fullbin shape")
+    keys = torch.empty((B, P * N), dtype=torch.int64, device=dev)
+    inv = 0xFFFFFFFF - torch.arange(P * N, device=dev, dtype=torch.int64)
+    for b in range(B):
+        bits = torch.where(vpos, raw[b].float() * scale, -1.0).view(torch.int32).reshape(-1)
+        keys[b] = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64) * (1 << 32) + inv
+    require(torch.equal(torch.topk(keys, k, dim=-1).indices, pi),
+            "torch.topk over the keys differs from the plain twin")
+    perf["select_topk"][f"fullbin_{B}x{P}x{N}_k{k}"] = dict(
+        **kernel_times(kern, "select_", reps=10, per_call=6), plain_ms=cuda_ms(plain, 2),
+        library_ms=cuda_ms(lambda: torch.topk(keys, k, dim=-1), 3), max_abs_err=0,
+        valid=int((vals >= THRESHOLD - 5.0).sum()), bound=RL.select_topk(B, P, N, k)._asdict())
+    del keys, raw
+    emit("select_vs_plain", TK=perf["select_topk"])
 
 
 def raster_times(coefs, w: int, h: int) -> dict:
@@ -2527,6 +2588,10 @@ def main() -> int:
         exact_phase(dev, perf)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "select"]:
+        select_phase(dev, perf)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2667,21 +2732,29 @@ def main() -> int:
     # sub-threshold filler slots come from different score sets.
     fb = BatchedMatcher(det, cid, THRESHOLD, B_MAIN, device=dev,
                         **{**kw, "pool_coarse": 8})
+    tracing.reset()
     t0 = time.perf_counter()
     R0, c_fb, nv_fb = fb.candidates(rgbs, deps)
     m_fb = fb.refine(R0, c_fb, nv_fb)
     torch.cuda.synchronize()
     fb_s = time.perf_counter() - t0
+    launches_fb = tracing.launches()
     require(bool(fb.last_pool.fallback), "forced tiny pool did not fall back")
+    require(launches_fb["exact_scores"] == 1 and launches_fb["select_topk"] == 1,
+            f"the fallback batch did not launch XS and TK once each: {launches_fb}")
     _, c_pool, nv_pool = main_m.candidates(rgbs, deps)
     require(torch.equal(nv_fb, nv_pool), "fallback n_valid != pooled n_valid")
     require(valid_equal(c_fb, c_pool), "fallback candidates != pooled candidates")
     require(valid_equal(m_fb, m_kern), "fallback matches != pooled matches")
     emit("forced_fallback", fallback=True, equal_valid_candidates=True,
-         n_valid=nv_fb.tolist(), equal_valid_matches=True, batch_ms=fb_s * 1e3)
+         n_valid=nv_fb.tolist(), equal_valid_matches=True, batch_ms=fb_s * 1e3,
+         launches=launches_fb)
 
     # -- phase 2d: XS vs its plain twin and the int8 GEMM route --------------
     exact_phase(dev, perf, main_m, rgbs, deps)
+
+    # -- phase 2e: TK vs its plain twin at the fullbin shape -----------------
+    select_phase(dev, perf)
 
     # -- phase 3: K3 vs plain on the tiled batch's candidate sets ------------
     R0, cands, n_valid = main_m.candidates(rgbs, deps)
@@ -2720,7 +2793,8 @@ def main() -> int:
 
     # -- summary -------------------------------------------------------------
     # launches: of one B=32 pooled batch (phase 2b) for K1-K3 and XS, of one detect
-    # (phase 6) for K2b and K4, of one K5 chain (phase 7) for K5.  ms, plain
+    # (phase 6) for K2b and K4, of one K5 chain (phase 7) for K5, of one B=32
+    # fallback batch (phase 2c) for TK.  ms, plain
     # and bound: summed over the shapes of those launches; the other timed
     # shapes (K3 over all slots and at detect's B=1, K4 at 8 poses, on the
     # 640x480 frame, on detect's own operands and on the accuracy detect's 16
@@ -2733,7 +2807,8 @@ def main() -> int:
                 "trainer_16x480x640", f"every_cell_{B_MAIN}x{TILE_TO}")
     launches_of = {"spread_response_b1": (per_detect["spread_response"], "one detect"),
                    "raster_zbuffer": (per_detect["raster_zbuffer"], "one detect"),
-                   "refine_scores": (launches7["refine_scores"], "one K5 chain")}
+                   "refine_scores": (launches7["refine_scores"], "one K5 chain"),
+                   "select_topk": (launches_fb["select_topk"], "one B=32 fallback batch")}
     summary = []
     for key, (name, src, replaces) in KERNELS.items():
         shapes = perf[key]
@@ -2752,8 +2827,7 @@ def main() -> int:
             bound_ms=bound_ms, bound_by=shapes[by]["bound"]["by"],
             share_of_bound=bound_ms / ms,
             library_ms=None if None in library else sum(library),
-            library_note=("no single PyTorch call computes it" if None in library else
-                          "the int8 GEMM route it replaced: the patch rows, torch._int_mm"),
+            library_note=LIBRARY_NOTES.get(key, "no single PyTorch call computes it"),
             launches_per_detect=per_detect.get(key.removesuffix("_b1")),
             launches_per_positions_batch=launches9.get(key),
             launches_per_accuracy_detect=launches10.get(key.removesuffix("_b1")),

@@ -215,8 +215,9 @@ class Detector:
         select at threshold - 5 and cv::linemod's walk.  The reference's
         `approx_select` picks approx_max_k over an exact top_k; the port's
         select is exact either way (on the reference's CPU backend the two
-        agree).  `use_pallas_refine=False` runs the plain exact scorer and
-        walk even on the card; otherwise CUDA tensors launch XS and K3."""
+        agree).  `use_pallas_refine=False` runs the plain exact scorer,
+        select and walk even on the card; otherwise CUDA tensors launch XS,
+        TK and K3."""
         p = self.params
         T0, T1 = p.t_pyramid
         bank = self.bank(class_id)
@@ -237,7 +238,7 @@ class Detector:
             Hc, Wc = R1.shape[1] // T1, R1.shape[2] // T1
             vpos = M.position_validity_flat(feats1.size, T1, Hc, Wc)
             cand = M.select_candidates_flat(raw[None], feats1.count, vpos,
-                                            threshold - 5.0, top_k, Wc)
+                                            threshold - 5.0, top_k, Wc, plain)
             return M.refine_candidates_opencv(
                 R0, feats0, M.CoarseMatches(*(a[0] for a in cand)), T1,
                 threshold, E0=E0, fine_T=T0, plain=plain)

@@ -119,7 +119,7 @@ class BatchedMatcher:
     candidates; the walk skips the slots past it.
 
     `device` places the bank operands and the computation.  `plain=True`
-    runs the plain PyTorch versions of K1, K2, DN, XS and K3 even on the
+    runs the plain PyTorch versions of K1, K2, DN, XS, TK and K3 even on the
     card — the path the kernels are checked against."""
 
     def __init__(self, detector, class_id: str, threshold: float, batch: int,
@@ -198,7 +198,8 @@ class BatchedMatcher:
         count = self.feats1.count
         if not self.prune:
             raw = M.coarse_scores_gemm_flat_batched(R1, w.exact, T1, self.Kc1, self.plain)
-            cands = M.select_candidates_flat(raw, count, vpos, thr, self.top_k, Wc)
+            cands = M.select_candidates_flat(raw, count, vpos, thr, self.top_k, Wc,
+                                             self.plain)
             return R0, cands, None
         if self.prune_mode == "positions":
             if self.fine_g:

@@ -29,7 +29,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = ("quantize_cg.cu", "spread_response.cu", "walk_scores.cu",
            "raster_zbuffer.cu", "refine_scores.cu", "depth_normal.cu",
-           "exact_scores.cu")
+           "exact_scores.cu", "select_topk.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # No FMA contraction: fastAtan2's polynomial (K1), the rasterizer's
@@ -61,6 +61,9 @@ _SIGNATURES = {
     # (planes, frame or NULL, pos or NULL, table, out,
     #  B, M, L, Hc, Wc, Kc, N, F, Hp, XS, BH, LS, device, stream)
     "lpe_exact_scores": (_P,) * 5 + (_I,) * 13 + (_P,),
+    # (raw, scale, vpos, hist, state, cand_key, cand_idx, cand_cnt, eq_idx,
+    #  eq_cnt, vals, idx, B, P, N, k, G, device, stream)
+    "lpe_select_topk": (_P,) * 12 + (_I,) * 6 + (_P,),
 }
 
 _lib = None

@@ -1,15 +1,17 @@
 """Kernels K2 (spread + response maps, ``csrc/spread_response.cu``), K3
 (cv::linemod's 16 x 16 local walk, ``csrc/walk_scores.cu``), K5 (dense
-window scores around coarse candidates, ``csrc/refine_scores.cu``) and XS
-(the exact coarse scorer, ``csrc/exact_scores.cu``), each with its plain
+window scores around coarse candidates, ``csrc/refine_scores.cu``), XS
+(the exact coarse scorer, ``csrc/exact_scores.cu``) and TK (the
+exhaustive select's top-k, ``csrc/select_topk.cu``), each with its plain
 PyTorch version beside it.
 
 K2 replaces ``linemod_pose_estimation_tpu/ops/pallas_kernels.py::
 spread_response_batched``; K3 replaces ``walk_scores_pallas``; K5
 replaces ``refine_scores_pallas``.  XS replaces no Pallas kernel: the
 reference's exact coarse scores are an XLA dot_general over one-hot
-weights.  A CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises.
+weights; nor does TK: the reference selects with jax.lax.top_k.  A CPU
+tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -447,3 +449,91 @@ def exact_scores(Rb: torch.Tensor, table: torch.Tensor, T: int, Kc: int,
     _build.check(err, "exact_scores")
     tracing.count("launch.exact_scores")
     return out
+
+
+# ---------------------------------------------------------------------------
+# TK: the exhaustive select's top-k
+# ---------------------------------------------------------------------------
+
+SELECT_MAX_K = 512  # the largest k TK takes: the detector's top_k
+SELECT_STEP = 16384  # elements of a frame a TK block takes at a time (the kernel's STEP)
+SELECT_MAX_BLOCKS = 512  # blocks a frame at most
+
+
+def topk_first_index(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last dim of f32 or int32 `vals`, ties broken by the
+    LOWER index first (JAX top_k's order), via one topk on a unique int64
+    key: the value (a float's order-preserving int32 image), then the
+    inverted index."""
+    if vals.dtype == torch.int32:
+        key32 = vals.to(torch.int64)
+    else:
+        bits = vals.contiguous().view(torch.int32)
+        key32 = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
+    n = vals.shape[-1]
+    inv = (0xFFFFFFFF - torch.arange(n, device=vals.device, dtype=torch.int64))
+    _, idx = torch.topk(key32 * (1 << 32) + inv, k, dim=-1, largest=True, sorted=True)
+    return torch.gather(vals, -1, idx), idx
+
+
+def select_topk_plain(raw: torch.Tensor, scale: torch.Tensor, vpos: torch.Tensor, k: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of sim = where(vpos, raw * scale, -1.0) in each frame
+    of raw (B, P, N) int32, over the flat index p * N + n, the lower index
+    first on ties: (vals (B, k) f32, idx (B, k) int64).  scale (N,) f32;
+    vpos (P, N) bool."""
+    out = []
+    for b in range(raw.shape[0]):  # one frame at a time bounds the (P*N) key memory
+        sim = torch.where(vpos, raw[b].to(torch.float32) * scale[None, :], -1.0).reshape(-1)
+        out.append(topk_first_index(sim, k))
+    vals, idx = zip(*out)
+    return torch.stack(vals), torch.stack(idx)
+
+
+def select_topk(raw: torch.Tensor, scale: torch.Tensor, vpos: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """TK: select_topk_plain's (vals, idx), bit for bit, for all B frames in
+    one call and with no host sync: an exact radix select on sim's order
+    key over raw read three times, the keys made as raw is read (none is
+    written), the ties kept by index order (csrc/select_topk.cu).  What
+    bounds it is raw's bytes.  Operands: raw (B, P, N) int32 with P * N <
+    2^30; scale (N,) f32; vpos (P, N) bool; 1 <= k <= min(512, P * N)."""
+    if raw.device.type == "cpu":
+        return select_topk_plain(raw, scale, vpos, k)
+    if raw.dim() != 3:
+        raise ValueError(f"raw: expected (B, P, N), got {tuple(raw.shape)}")
+    B, P, N = raw.shape
+    n = P * N
+    if not 1 <= k <= min(SELECT_MAX_K, n):
+        raise ValueError(f"k={k}: TK takes 1 to min({SELECT_MAX_K}, P * N = {n})")
+    if n >= 1 << 30:
+        raise ValueError(f"P * N = {n}: TK indexes a frame in int32")
+    dev = raw.device
+    raw, scale, vpos = raw.contiguous(), scale.contiguous(), vpos.contiguous()
+    _build.require(raw, "raw", torch.int32)
+    _build.require(scale, "scale", torch.float32, (N,), dev)
+    _build.require(vpos, "vpos", torch.bool, (P, N), dev)
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, k), dtype=torch.int64, device=dev)
+    if B == 0:
+        return vals, idx
+    # blocks a frame: about four a multiprocessor over the batch, each at
+    # least one step of the frame
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = max(1, min(SELECT_MAX_BLOCKS, -(-n // SELECT_STEP), 4 * sms // B))
+    i32 = dict(dtype=torch.int32, device=dev)
+    hist = torch.zeros((2, B, 1 << 16), **i32)
+    state = torch.empty((B, 4), **i32)
+    cand = torch.empty((2, B, SELECT_MAX_K), **i32)
+    cand_cnt = torch.zeros(B, **i32)
+    eq_idx = torch.empty((B, G, k), **i32)
+    eq_cnt = torch.empty((B, G), **i32)
+    lib = _build.library()
+    err = lib.lpe_select_topk(
+        raw.data_ptr(), scale.data_ptr(), vpos.data_ptr(), hist.data_ptr(), state.data_ptr(),
+        cand[0].data_ptr(), cand[1].data_ptr(), cand_cnt.data_ptr(), eq_idx.data_ptr(),
+        eq_cnt.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, P, N, k, G,
+        *_build.device_and_stream(raw))
+    _build.check(err, "select_topk")
+    tracing.count("launch.select_topk")
+    return vals, idx

@@ -56,7 +56,9 @@ Every output equals the reference's bit for bit.  What changed on the way:
   read with ``.item()``: one device sync per flag, and only the taken
   branch runs, as under ``lax.cond``.
 - Top-k keeps the reference's tie order (lower flat index first) by
-  selecting on a unique 64-bit key (value bits, then inverted index).
+  selecting on a unique 64-bit key (value bits, then inverted index); on
+  a card the exhaustive select (select_candidates_flat) is kernel TK, an
+  exact radix select over the batch in one call.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ from ..utils import tracing
 from . import cuda_kernels as CK
 from . import cuda_preprocess as CP
 from . import features as F
+from .cuda_kernels import topk_first_index as _topk_first_index
 
 _NEG = -(2**30)  # margin sentinel below any real margin
 
@@ -403,8 +406,9 @@ def position_validity(size: torch.Tensor, T: int, Hc: int, Wc: int) -> torch.Ten
 
 
 def position_validity_flat(size: torch.Tensor, T: int, Hc: int, Wc: int) -> torch.Tensor:
-    """(Hc*Wc, N) bool — position-major twin of position_validity."""
-    return position_validity(size, T, Hc, Wc).reshape(size.shape[0], -1).t()
+    """(Hc*Wc, N) bool — position-major twin of position_validity
+    (contiguous, as TK reads it)."""
+    return position_validity(size, T, Hc, Wc).reshape(size.shape[0], -1).t().contiguous()
 
 
 def _device_scalar(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -436,22 +440,6 @@ def _sim_scale(total_features: torch.Tensor) -> torch.Tensor:
     return torch.full_like(den, 100.0) / den
 
 
-def _topk_first_index(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last dim of f32 or int32 `vals`, ties broken by the
-    LOWER index first (JAX top_k's order), via one topk on a unique int64
-    key: the value (a float's order-preserving int32 image), then the
-    inverted index."""
-    if vals.dtype == torch.int32:
-        key32 = vals.to(torch.int64)
-    else:
-        bits = vals.contiguous().view(torch.int32)
-        key32 = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
-    n = vals.shape[-1]
-    inv = (0xFFFFFFFF - torch.arange(n, device=vals.device, dtype=torch.int64))
-    _, idx = torch.topk(key32 * (1 << 32) + inv, k, dim=-1, largest=True, sorted=True)
-    return torch.gather(vals, -1, idx), idx
-
-
 def _coarse_matches(vals, t, pos, Wc: int, threshold: float) -> CoarseMatches:
     return CoarseMatches(
         t.to(torch.int32),
@@ -469,20 +457,17 @@ def select_candidates_flat(
     threshold: float,
     top_k: int,
     Wc: int,
+    plain: bool = False,
 ) -> CoarseMatches:
     """Candidate selection over position-major scores (B, P, N) -> (B, top_k)
-    CoarseMatches (the exhaustive path's select)."""
+    CoarseMatches (the exhaustive path's select): on a card kernel TK over
+    every frame at once (its plain twin with `plain`), on the CPU the plain
+    twin; one threshold copy a call."""
     B, P, N = raw_flat.shape
-    scale = _sim_scale(total_features)
-    k = min(top_k, P * N)
-    out = []
-    for b in range(B):  # one frame at a time bounds the (P*N) key memory
-        sim = torch.where(vpos_flat, raw_flat[b].to(torch.float32) * scale[None, :],
-                          -1.0).reshape(-1)
-        vals, idx = _topk_first_index(sim, k)
-        out.append(_coarse_matches(vals, idx % N, torch.div(idx, N, rounding_mode="floor"),
-                                   Wc, threshold))
-    return CoarseMatches(*(torch.stack(a) for a in zip(*out)))
+    select = CK.select_topk_plain if plain else CK.select_topk
+    vals, idx = select(raw_flat, _sim_scale(total_features), vpos_flat, min(top_k, P * N))
+    return _coarse_matches(vals, idx % N, torch.div(idx, N, rounding_mode="floor"),
+                           Wc, threshold)
 
 
 def select_candidates_flat_pos(
@@ -909,8 +894,10 @@ def _pooled_selects(
             tracing.count("pool.select_overflow")
         with tracing.span("lpe.pool.fallback"):
             raw = coarse_scores_gemm_flat_batched(Rb, exact, T, Kc, plain)
-            cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k, Wc)
-                     for vpos_c, thr_c in classes]
+            with tracing.span("lpe.pool.fallback.select"):
+                cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k,
+                                                Wc, plain)
+                         for vpos_c, thr_c in classes]
             n_valid = [c.valid.sum(dim=1).to(torch.int32) for c in cands]
     stats = PooledStats(
         coarse_total=pp.total, coarse_m=pp.m_survivors,
@@ -1225,7 +1212,7 @@ def _positions_selects(
 
     if _read_flag(pp.overflow):
         raw = coarse_scores_gemm_flat_batched(Rb, exact, T, Kc, plain)
-        cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k, Wc)
+        cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k, Wc, plain)
                  for vpos_c, thr_c in classes]
         if g is None:
             return cands, None

@@ -139,3 +139,18 @@ def exact_scores(M: int, N: int, F: int, live_features: int, plane_bytes: int) -
     the frames' Hc*T x Wc*T crop for every cell, at most M patch rows of
     C*T*T*Kc*Kc bytes for a row list) and the (M, N) int32 scores."""
     return bound(plane_bytes + N * F * 4 + M * N * 4, M * live_features)
+
+
+# TK, per element: the int-to-float conversion, the scale's multiply, the
+# validity select, the order key (a sign test and an invert or an or: 2)
+# and one compare against the k-th key (1).
+SELECT_TOPK_OPS_PER_ELEMENT = 1 + 1 + 1 + 2 + 1
+
+
+def select_topk(B: int, P: int, N: int, k: int) -> Bound:
+    """TK over B frames of (P, N) int32 scores: each score read once, the
+    (P, N) bool validity and (N,) f32 scale once, and the (B, k) f32 values
+    and int64 indices written; whatever passes an implementation makes."""
+    n = P * N
+    return bound(B * n * 4 + n + N * 4 + B * k * (4 + 8),
+                 B * n * SELECT_TOPK_OPS_PER_ELEMENT)

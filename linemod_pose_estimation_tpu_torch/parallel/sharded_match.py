@@ -313,7 +313,7 @@ class ShardedDetectStep:
     "two_axis"; `prune=False` the exhaustive scores.  The walk (K3) refines
     this shard's candidates, the ids are re-based by shard * n_local, and
     the shards' Matches merge into a global top-k over "bank".
-    `plain=True` runs the plain versions of K1, K2, DN, XS and K3.
+    `plain=True` runs the plain versions of K1, K2, DN, XS, TK and K3.
 
     After a call, `last_pool` and `last_n_valid` (pooled), `last_prune` /
     `last_fine` (positions, two_axis) hold this rank's plans, and
@@ -397,7 +397,8 @@ class ShardedDetectStep:
                                                  pr.p_idx, pr.p_keep, thr, k, Wc)
             return cand, None, pr.overflow
         raw = M.coarse_scores_gemm_flat_batched(R1, w.exact, T1, Kc1, self.plain)
-        return M.select_candidates_flat(raw, count, vpos, thr, k, Wc), None, false
+        cand = M.select_candidates_flat(raw, count, vpos, thr, k, Wc, self.plain)
+        return cand, None, false
 
     def __call__(self, rgbs, depths, bank: ShardedBank):
         """rgbs (B, H, W, 3) u8 and depths (B, H, W) f32 or None — this
@@ -597,7 +598,8 @@ class RingDetectStep:
                 nxt = _ppermute_start([*feats1, *feats0], self.mesh, self.axis, -1, log)
             vpos = M.position_validity_flat(feats1.size, self.T1, Hc, Wc)
             raw = M.coarse_scores_gemm_flat_batched(R1, W1, self.T1, self.Kc1, self.plain)
-            cand = M.select_candidates_flat(raw, feats1.count, vpos, self.sel_thr, k, Wc)
+            cand = M.select_candidates_flat(raw, feats1.count, vpos, self.sel_thr, k, Wc,
+                                            self.plain)
             ref = M.refine_candidates_opencv_batched(
                 R0, feats0, cand, self.T1, self.threshold, E0=self.E0, fine_T=self.T0,
                 plain=self.plain)

@@ -105,8 +105,9 @@ def golden_crops(frames=(4, 3)):
     return np.stack(out_r), np.stack(out_d)
 
 
-def bin_picking_batch(B: int, seed: int = 3):
-    """B frames, each with two random committed views planted."""
+def bin_picking_batch(B: int, seed: int = 3, objects: int = 2):
+    """B frames, each with `objects` random committed views planted (six
+    make a full bin: later views cover parts of earlier ones)."""
     views = load_views()
     rng = np.random.default_rng(seed)
     H, W = views[0][0].shape[:2]
@@ -114,7 +115,7 @@ def bin_picking_batch(B: int, seed: int = 3):
     for _ in range(B):
         fr, dp = background(H, W, rng)
         planted = []
-        for _ in range(2):
+        for _ in range(objects):
             v = int(rng.integers(0, len(views)))
             planted.append((v, *plant(fr, dp, views[v], rng)))
         frames.append(fr)

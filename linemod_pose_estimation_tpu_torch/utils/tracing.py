@@ -24,7 +24,8 @@ thread):
       lpe.sync                each flag read on the host (``.item()``)
       lpe.pool.fine           the g x g bound to the fine compaction
       lpe.pool.exact          the exact pooled GEMM and the selects
-      lpe.pool.fallback       the exhaustive GEMM and its selects
+      lpe.pool.fallback       the exhaustive scores and their selects
+        lpe.pool.fallback.select  the selects (TK on a card)
     lpe.merge                 the merged matcher: its classes' candidates in one sorted list
     lpe.walk                  walk plan, K3, argmax
     lpe.split                 the merged matcher: the walked matches per class, re-gated
@@ -62,7 +63,7 @@ counters: dict[str, int] = {}
 
 # The hand-written kernels, each counted as `launch.<kernel>` by its wrapper.
 KERNELS = ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer", "refine_scores",
-           "depth_normal", "exact_scores")
+           "depth_normal", "exact_scores", "select_topk")
 
 
 class _Off:

@@ -1,5 +1,5 @@
 """The CUDA kernels K1, K2 (also at B=1, the port of K2b), K3, K4, K5, DN,
-XS and the kernel paths of BatchedMatcher (pooled, positions, two_axis, the
+XS, TK and the kernel paths of BatchedMatcher (pooled, positions, two_axis, the
 RGB-only bank), the K5 refiner, MultiClassBatchedMatcher (pooled and its
 default mode) and DetectionPipeline against their plain
 PyTorch versions, on a card; then the cascade's non-default options (the
@@ -29,7 +29,7 @@ from linemod_pose_estimation_tpu_torch.models.detector import Detector
 from linemod_pose_estimation_tpu_torch.models.pipeline import DetectionPipeline
 from linemod_pose_estimation_tpu_torch.models.renderer import _pad_triangles
 from linemod_pose_estimation_tpu_torch.models.serving import (
-    BatchedMatcher, MultiClassBatchedMatcher)
+    BatchedMatcher, MultiClassBatchedMatcher, slice_settings)
 from linemod_pose_estimation_tpu_torch.models.templates import TemplateBank
 from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
 from linemod_pose_estimation_tpu_torch.ops import cuda_preprocess as CP
@@ -384,6 +384,158 @@ def test_plain_pooled_matcher_launches_no_kernel(cuda):
         assert bool(m.last_pool.fallback) == fallback, route
         for a, b in zip(got, want):
             assert torch.equal(a, b), route
+
+
+def _tiled_matcher(cuda, B: int, **kw) -> BatchedMatcher:
+    """The production pooled matcher at batch B over the bank tiled to
+    10,624 templates (batch32-fullbin's configuration)."""
+    td = Detector.read(BANK)
+    cid = td.class_ids[0]
+    bank = td.bank(cid)
+    td.attach_bank(bank.tile(-(-10240 // bank.num_templates), 10624))
+    return BatchedMatcher(td, cid, 91.0, B, device=cuda, **{**slice_settings(B), **kw})
+
+
+def _select_case(cuda, name: str):
+    """(raw (B, P, N) int32, total_features (N,), vpos (P, N) bool or a
+    list of per-class masks, top_k, Wc) of TK's test case `name`."""
+    g = torch.Generator().manual_seed(sum(map(ord, name)))
+    rint = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
+    if name == "fullbin_b32":
+        m = _tiled_matcher(cuda, 32)
+        rgbs, deps, _ = S.bin_picking_batch(32, seed=7, objects=6)
+        _, R1 = TM.preprocess_frames_batched(torch.from_numpy(rgbs).to(cuda),
+                                             torch.from_numpy(deps).to(cuda), use_depth=True)
+        Hc, Wc = R1.shape[2] // 8, R1.shape[3] // 8
+        raw = TM.coarse_scores_gemm_flat_batched(R1, m.weights.exact, 8, m.Kc1)
+        return raw, m.feats1.count, m._vpos_flat(Hc, Wc), 128, Wc
+    B, P, N, k, Wc = {"all_equal": (3, 300, 2000, 128, 20),
+                      "ties_at_kth": (4, 1200, 700, 128, 40),
+                      "fewer_valid_than_k": (2, 1200, 2652, 128, 40),
+                      "vpos_none": (2, 1200, 2652, 128, 40),
+                      "detector_b1_k512": (1, 1200, 2652, 512, 40),
+                      "k256": (8, 1200, 2652, 256, 40),
+                      "odd_p_n": (5, 37, 1001, 100, 1),
+                      "odd_p_n4": (3, 33, 524, 512, 3),
+                      "k_past_pn": (2, 3, 5, 128, 3),
+                      "signed": (3, 600, 1000, 300, 30),
+                      "two_class": (4, 1200, 5304, 128, 40)}[name]
+    raw = rint(0, 505, (B, P, N))
+    count = rint(1, 127, (N,))
+    vpos = torch.rand((P, N), generator=g) < 0.85
+    if name == "all_equal":
+        raw.fill_(77)
+        count.fill_(63)
+        vpos.fill_(True)
+    elif name == "ties_at_kth":  # 50 keys above a tie of ~100k at the k-th
+        raw = rint(0, 4, (B, P, N))
+        count.fill_(63)
+        flat = raw.view(B, -1)
+        for b in range(B):
+            flat[b, torch.randperm(P * N, generator=g)[:50]] = 9
+    elif name == "fewer_valid_than_k":
+        vpos = torch.rand((P, N), generator=g) < 40 / (P * N)
+    elif name == "vpos_none":
+        vpos.fill_(False)
+    elif name == "signed":  # negative sims, -0.0 and int32 extremes
+        raw = rint(-6, 6, (B, P, N))
+        raw[:, :, :7] = torch.tensor([0, -1, 2**31 - 1, -2**31, 2**24 + 1, -(2**24 + 1), 3],
+                                     dtype=torch.int32)
+    if name == "two_class":
+        vpos = [c for c, _ in TM._class_columns(vpos, [(0, 2652), (2652, N)], [92.0, 94.0])]
+    to = lambda t: t.to(cuda)
+    return to(raw), to(count), [to(v) for v in vpos] if name == "two_class" else to(vpos), k, Wc
+
+
+SELECT_CASES = ["fullbin_b32", "all_equal", "ties_at_kth", "fewer_valid_than_k", "vpos_none",
+                "detector_b1_k512", "k256", "odd_p_n", "odd_p_n4", "k_past_pn", "signed",
+                "two_class"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_select_topk_kernel_equals_plain(cuda, case):
+    """TK against its plain twin, bit for bit on the values (their bits:
+    -0.0 is not 0.0) and on every CoarseMatches field: at batch32-fullbin's
+    shape on XS's scores of seeded six-object scenes; every score equal;
+    ties straddling the k-th key; fewer valid positions than k and none
+    (the -1.0 fillers, lowest index first); the detector's B=1 at k=512;
+    k=256; P and N off the kernel's steps and vectors; k past P * N;
+    negative scores and int32 extremes; a two-class split of the columns."""
+    raw, count, vposes, top_k, Wc = _select_case(cuda, case)
+    B, P, N = raw.shape
+    scale = TM._sim_scale(count)
+    k = min(top_k, P * N)
+    for vpos in vposes if isinstance(vposes, list) else [vposes]:
+        tracing.reset()
+        vals, idx = CK.select_topk(raw, scale, vpos, k)
+        assert tracing.launches()["select_topk"] == 1
+        want_vals, want_idx = CK.select_topk_plain(raw, scale, vpos, k)
+        assert torch.equal(vals.view(torch.int32), want_vals.view(torch.int32)), case
+        assert torch.equal(idx, want_idx), case
+        got = TM.select_candidates_flat(raw, count, vpos, 90.0, top_k, Wc)
+        want = TM.select_candidates_flat(raw, count, vpos, 90.0, top_k, Wc, plain=True)
+        for name, a, b in zip(got._fields, got, want):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (case, name)
+
+
+@pytest.mark.requires_cuda
+def test_select_topk_kernel_refuses_what_it_does_not_take(cuda):
+    raw = torch.zeros((2, 30, 40), dtype=torch.int32, device=cuda)
+    scale = torch.ones(40, device=cuda)
+    vpos = torch.ones((30, 40), dtype=torch.bool, device=cuda)
+    for k in (0, 513):
+        with pytest.raises(ValueError, match="TK takes"):
+            CK.select_topk(raw, scale, vpos, k)
+    with pytest.raises(ValueError, match="int32"):
+        CK.select_topk(raw.float(), scale, vpos, 8)
+    with pytest.raises(ValueError, match="shape"):
+        CK.select_topk(raw, scale[:-1], vpos, 8)
+
+
+@pytest.mark.requires_cuda
+def test_fullbin_fallback_launches_select_topk_once_a_class(cuda):
+    """batch32-fullbin's matcher on six-object frames, its coarse pool
+    forced small, overflows it on every batch as fullbin's scenes do, so
+    the batch falls back: XS and TK launch once each, with one threshold
+    copy for the select; the two-object matcher's fallback launches TK
+    once a class; the plain matchers never launch it; every Matches field
+    equals the plain matcher's."""
+    B = 32
+    rgbs, deps, _ = S.bin_picking_batch(B, seed=11, objects=6)
+    m = _tiled_matcher(cuda, B, pool_coarse=8)
+    tracing.reset()
+    got = m.match_batch(rgbs, deps)
+    assert bool(m.last_pool.coarse_overflow)
+    launches = tracing.launches()
+    assert launches["exact_scores"] == 1 and launches["select_topk"] == 1, launches
+    assert tracing.counters["sync"] == 8, tracing.counters
+    plain = _tiled_matcher(cuda, B, pool_coarse=8, plain=True)
+    tracing.reset()
+    want = plain.match_batch(rgbs, deps)
+    assert not any(tracing.launches().values()), tracing.launches()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+    td = Detector.read(BANK)
+    cid = td.class_ids[0]
+    bank = td.bank(cid)
+    td.attach_bank(TemplateBank("second", bank.params, bank.templates))
+    g_rgbs, g_deps = S.golden_crops()
+    kw = dict(top_k=64, prune_mode="pooled", pool_coarse=1, pool_fine=72)
+    out = {}
+    for plain in (False, True):
+        mc = MultiClassBatchedMatcher(td, [cid, "second"], [70.0, 72.0], 2, device=cuda,
+                                      plain=plain, **kw)
+        tracing.reset()
+        out[plain] = mc.match_batch(g_rgbs, g_deps)
+        assert bool(mc.last_pool.fallback)
+        assert tracing.launches()["select_topk"] == (0 if plain else 2)
+    for c in (cid, "second"):
+        for a, b in zip(out[False][c], out[True][c]):
+            assert torch.equal(a, b), c
 
 
 # keyword arguments of BatchedMatcher(prune=True) -> (coarse, fine) overflow;

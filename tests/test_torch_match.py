@@ -19,7 +19,9 @@ from test_prune import C, KC, T1, _bank, _frames, _plant  # noqa: E402
 
 from linemod_pose_estimation_tpu.ops import match as JM  # noqa: E402
 from linemod_pose_estimation_tpu_torch import convert  # noqa: E402
+from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK  # noqa: E402
 from linemod_pose_estimation_tpu_torch.ops import match as TM  # noqa: E402
+from linemod_pose_estimation_tpu_torch.utils import tracing  # noqa: E402
 
 G = 4
 
@@ -136,3 +138,33 @@ def test_thresholds_and_exhaustive_select_equal_reference():
     for b in range(2):
         for name, a, w in zip(got._fields, got, want[b]):
             np.testing.assert_array_equal(a[b].numpy(), np.asarray(w), err_msg=name)
+
+
+def test_exhaustive_select_on_the_cpu_takes_the_plain_twin_in_one_call():
+    """select_candidates_flat on CPU tensors, with `plain` or without,
+    runs TK's plain twin (no kernel launch), and its one batched call
+    equals each frame selected alone and the reference's per-frame select:
+    ties, -1.0 fillers past the valid positions, k past P * N."""
+    rng = np.random.default_rng(6)
+    raw = rng.integers(0, 6, size=(3, 30, 16)).astype(np.int32)  # many ties
+    cnt = rng.integers(0, 4, size=16).astype(np.int32)
+    for vpos, top_k in ((rng.random((30, 16)) < 0.8, 40), (rng.random((30, 16)) < 0.05, 40),
+                        (rng.random((30, 16)) < 0.5, 600)):
+        args = [torch.from_numpy(a) for a in (raw, cnt, vpos)]
+        tracing.reset()
+        got = TM.select_candidates_flat(*args, 50.0, top_k, 6)
+        got_plain = TM.select_candidates_flat(*args, 50.0, top_k, 6, plain=True)
+        assert not any(tracing.launches().values())
+        assert got.valid.shape == (3, min(top_k, 30 * 16))
+        scale = TM._sim_scale(args[1])
+        k = min(top_k, 30 * 16)
+        for a, w in zip(CK.select_topk(args[0], scale, args[2], k),
+                        CK.select_topk_plain(args[0], scale, args[2], k)):
+            assert torch.equal(a, w)
+        for b in range(3):
+            alone = TM.select_candidates_flat(args[0][b:b + 1], *args[1:], 50.0, top_k, 6)
+            want = JM.select_candidates_flat(jnp.asarray(raw[b]), jnp.asarray(cnt),
+                                             jnp.asarray(vpos), 50.0, top_k, 6, exact=True)
+            for name, a, p, s, w in zip(got._fields, got, got_plain, alone, want):
+                assert torch.equal(a[b], p[b]) and torch.equal(a[b], s[0]), name
+                np.testing.assert_array_equal(a[b].numpy(), np.asarray(w), err_msg=name)

@@ -47,3 +47,15 @@ def test_bound_takes_the_larger_time():
     assert b.ms == pytest.approx(1.0)
     b = RL.bound(10**6, 67_000_000_000)
     assert b.by == "operations" and b.ms == pytest.approx(1.0)
+
+
+def test_select_topk_counts_raw_once_whatever_the_passes():
+    # TK at batch32-fullbin's shape: 32 frames of 1200 x 10,624 int32
+    # scores, the (1200, 10,624) bool mask, the f32 scale, (32, 128) f32
+    # values and int64 indices out; bytes bound it
+    tk = RL.select_topk(32, 1200, 10624, 128)
+    n = 1200 * 10624
+    assert tk.bytes == 32 * n * 4 + n + 10624 * 4 + 32 * 128 * 12
+    assert tk.ops == 32 * n * RL.SELECT_TOPK_OPS_PER_ELEMENT
+    assert tk.by == "bytes" and tk.ms == pytest.approx(tk.bytes / 3.35e9)
+    assert RL.select_topk(1, 1200, 2652, 512).bytes == 1200 * 2652 * 5 + 2652 * 4 + 512 * 12

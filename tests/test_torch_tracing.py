@@ -45,6 +45,7 @@ BATCH_PARENT = {
     "lpe.pool.fine": "lpe.pool",
     "lpe.pool.exact": "lpe.pool",
     "lpe.pool.fallback": "lpe.pool",
+    "lpe.pool.fallback.select": "lpe.pool.fallback",
     "lpe.walk": "lpe.batch",
 }
 TRAIN_PARENT = {
@@ -187,7 +188,7 @@ def test_traced_spans_nest_in_their_parents(kind, sub_detector, crops, stl, tmp_
     else:
         want = set(BATCH_PARENT) | {"lpe.batch"}
         if kind == "multiclass":
-            want.remove("lpe.pool.fallback")  # one batch, no fallback
+            want -= {"lpe.pool.fallback", "lpe.pool.fallback.select"}  # no fallback
             want |= set(MULTICLASS_PARENT)
         assert set(spans) == want
         steps = 2 if kind == "match_batch" else 1
