@@ -41,6 +41,20 @@ class Frame:
     cloud: np.ndarray  # (H, W, 3) float32 metres, NaN = invalid
 
 
+@dataclass(frozen=True)
+class FrameConditioning:
+    """condition_frame's settings, the service's defaults.  Given to
+    `models.serving.BatchedMatcher(conditioning=...)`, a batch of raw
+    frames is conditioned on the matcher's device
+    (`ops.features.condition_frames`), bit for bit as condition_frame
+    conditions each frame."""
+
+    bias_x: int = 56
+    crop_w: int = 640
+    crop_h: int = 480
+    blur: bool = True
+
+
 def condition_frame(frame: Frame, bias_x: int = 56, crop_w: int = 640, crop_h: int = 480,
                     blur: bool = True) -> Frame:
     """mono -> BGR, 3 x 3 Gaussian (separable [1/4, 1/2, 1/4], wrapping at

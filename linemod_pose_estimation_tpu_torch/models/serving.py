@@ -34,17 +34,29 @@ from collections import deque
 import torch
 
 from ..ops import match as M
+from ..ops.features import condition_frames
 from ..ops.icp import icp_two_stage
 from ..utils import pointcloud as pcu
 from ..utils import tracing
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
+# Pool slots a frame (coarse, fine) of a one-modality bank, sized on the
+# card from the Ensenso cell's traffic (colour-only bank x4 at 85, B=32): the
+# fullest of 36 batches held 2221 coarse and 1311 fine survivors, 72% and
+# 64% of these pools; 56 / 36 overflow on every batch.
+POOLS_ONE_MODALITY = (96, 64)
+
+
 def slice_settings(batch: int, height: int = 480, width: int = 640,
-                   T1: int = 8) -> dict:
+                   T1: int = 8, modalities: int = 2) -> dict:
     """BatchedMatcher keyword arguments of the production pooled path at
     batch B (the reference bench's headline): top_k 128, fine_g 4,
     pool_coarse 56 B, pool_fine 36 B, sel_row_cap 128, group bound 16.
+
+    A bank of one modality (the Ensenso's ColorGradient bank) gets pools
+    of POOLS_ONE_MODALITY slots a frame: with one modality the bounds
+    prune less, and its coarse survivors overflow 56 B on every batch.
 
     The group tier's pool is every level-1 position of the batch
     (B * Hc * Wc), not the bench's 2 * pool_coarse: on RGB-D scenes whose
@@ -53,23 +65,33 @@ def slice_settings(batch: int, height: int = 480, width: int = 640,
     on the committed scenes), so a 2 * pool_coarse pool overflows on every
     batch and the exhaustive fallback always runs."""
     P = (height // 2 // T1) * (width // 2 // T1)
+    coarse, fine = POOLS_ONE_MODALITY if modalities == 1 else (56, 36)
     return dict(top_k=128, prune=True, prune_mode="pooled", fine_g=4,
-                pool_coarse=56 * batch, pool_fine=36 * batch, sel_row_cap=128,
+                pool_coarse=coarse * batch, pool_fine=fine * batch, sel_row_cap=128,
                 group_bound=16, pool_group=batch * P)
 
 
-def _frames(rgbs, depths_mm, use_depth: bool, device):
+def _frames(rgbs, depths_mm, use_depth: bool, device, conditioning=None):
     """The batch as tensors on `device`; depth is required by a
-    DepthNormal bank."""
+    DepthNormal bank.  With a `conditioning` (an api.service.
+    FrameConditioning) the raw frames are copied as they are and
+    conditioned on `device`."""
     if use_depth and depths_mm is None:
         raise ValueError(
             "this bank uses the DepthNormal modality: match_batch "
             "requires depths_mm (B, H, W) in millimetres"
         )
+    if conditioning is not None and depths_mm is not None:
+        raise ValueError("a conditioned batch is colour alone: no depths_mm")
     with tracing.span("lpe.entry.h2d"):
         rgbs = _to_device(rgbs, device)
         if depths_mm is not None:
             depths_mm = _to_device(depths_mm, device)
+    if conditioning is not None:
+        with tracing.span("lpe.entry.condition"):
+            c = conditioning
+            rgbs = condition_frames(rgbs, c.bias_x, c.crop_w, c.crop_h, c.blur)
+        tracing.count("condition.frames", rgbs.shape[0])
     return rgbs, depths_mm
 
 
@@ -118,6 +140,13 @@ class BatchedMatcher:
     most recent batch, and `self.last_n_valid` its per-frame count of valid
     candidates; the walk skips the slots past it.
 
+    `conditioning` (an api.service.FrameConditioning; None: frames come
+    ready) takes raw camera frames, (B, H, W) mono or (B, H, W, 3) u8 of
+    any size the crop fits: one copy to the device as they are, then the
+    service's condition_frame on the device (ops.features.condition_frames)
+    before the preprocess.  Such frames carry no depth, so the bank must
+    be colour-only.
+
     `device` places the bank operands and the computation.  `plain=True`
     runs the plain PyTorch versions of K1, K2, DN, XS, TK and K3 even on the
     card — the path the kernels are checked against."""
@@ -129,10 +158,14 @@ class BatchedMatcher:
                  pool_coarse: int | None = None, pool_fine: int | None = None,
                  sel_row_cap: int = 128, group_bound: int | None = None,
                  pool_group: int | None = None, device=DEFAULT_DEVICE,
-                 plain: bool = False):
+                 plain: bool = False, conditioning=None):
         if prune_mode not in PRUNE_MODES:
             raise ValueError(f"prune_mode={prune_mode!r}: one of {PRUNE_MODES}")
         p = detector.params
+        if conditioning is not None and p.use_depth_normal:
+            raise ValueError("conditioned frames carry no depth: the bank must not use "
+                             "the DepthNormal modality")
+        self.conditioning = conditioning
         bank = detector.bank(class_id)
         self.device = resolve_device(device)
         self.T0, self.T1 = p.t_pyramid
@@ -186,7 +219,8 @@ class BatchedMatcher:
         """Preprocess + exact candidate selection: (R0, CoarseMatches (B,
         top_k), n_valid (B,) in pooled mode, else None) — the first half
         of match_batch."""
-        rgbs, depths_mm = _frames(rgbs, depths_mm, self.use_depth, self.device)
+        rgbs, depths_mm = _frames(rgbs, depths_mm, self.use_depth, self.device,
+                                  self.conditioning)
         T1 = self.T1
         R0, R1 = M.preprocess_frames_batched(
             rgbs, depths_mm, T0=self.T0, T1=T1, use_depth=self.use_depth,
@@ -247,7 +281,8 @@ class BatchedMatcher:
 
     def match_batch(self, rgbs, depths_mm=None) -> M.Matches:
         """(B, H, W, 3) uint8 [+ (B, H, W) depth mm] -> batched Matches with
-        (B, top_k) tensors on the matcher's device (mask by .valid)."""
+        (B, top_k) tensors on the matcher's device (mask by .valid); with a
+        `conditioning`, raw (B, H, W_in) mono or (B, H, W_in, 3) frames."""
         with tracing.span("lpe.batch"):
             return self.refine(*self.candidates(rgbs, depths_mm))
 

@@ -326,3 +326,39 @@ def linearize_responses_lanes(R: torch.Tensor, T: int, max_cell_extent: int) -> 
     perm = list(range(n)) + [n + 1, n + 3, n, n + 2, n + 4]
     L = Rc.permute(*perm).reshape(*lead, Hc, Wc, C * T * T)
     return F.pad(L, (0, 0, 0, Kc, 0, Kc))
+
+
+def condition_frames(frames: torch.Tensor, bias_x: int = 56, crop_w: int = 640,
+                     crop_h: int = 480, blur: bool = True) -> torch.Tensor:
+    """The pose service's frame conditioning over a batch, on the frames'
+    device: (B, H, W) mono or (B, H, W, 3) u8 -> (B, crop_h, crop_w, 3) u8,
+    bit for bit ``api/service.py::condition_frame`` of each frame.
+
+    Mono frames are replicated to three channels; the blur is the separable
+    [1/4, 1/2, 1/4] kernel wrapping at every edge of the whole frame (not
+    cv::GaussianBlur's reflect-101), then the crop
+    Rect(bias_x, 0, crop_w, crop_h).  condition_frame's float sums are
+    (a + 2b + c) / 4 down and then across, exact multiples of 1/16 that it
+    truncates to u8: here the same integers in int16 and one shift.  Only
+    the crop and its one-pixel ring (wrapped) are read."""
+    if frames.dtype != torch.uint8 or frames.dim() not in (3, 4) or (
+            frames.dim() == 4 and frames.shape[-1] != 3):
+        raise ValueError(f"frames must be (B, H, W) or (B, H, W, 3) uint8, got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
+    H, W = frames.shape[1:3]
+    if bias_x < 0 or bias_x + crop_w > W or crop_h > H:
+        raise ValueError(f"the crop Rect({bias_x}, 0, {crop_w}, {crop_h}) does not fit "
+                         f"{H}x{W} frames")
+    if blur:
+        dev = frames.device
+        rows = torch.arange(-1, crop_h + 1, device=dev) % H
+        cols = torch.arange(bias_x - 1, bias_x + crop_w + 1, device=dev) % W
+        a = frames.index_select(1, rows).index_select(2, cols).to(torch.int16)
+        v = (a[:, :-2] + a[:, 2:]).add_(a[:, 1:-1], alpha=2)
+        s = (v[:, :, :-2] + v[:, :, 2:]).add_(v[:, :, 1:-1], alpha=2)
+        out = (s >> 4).to(torch.uint8)
+    else:
+        out = frames[:, :crop_h, bias_x:bias_x + crop_w]
+    if out.dim() == 3:
+        out = out[..., None].expand(*out.shape, 3)
+    return out.contiguous()

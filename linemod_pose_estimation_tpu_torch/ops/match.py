@@ -830,6 +830,15 @@ def _read_flag(flag: torch.Tensor) -> bool:
         return bool(flag.item())
 
 
+def _read_scalars(*values: torch.Tensor) -> list[int]:
+    """0-d integer or bool tensors read on the host in one transfer: on a
+    card one sync, counted."""
+    if values[0].is_cuda:
+        tracing.count("sync")
+    with tracing.span("lpe.sync"):
+        return torch.stack([v.to(torch.int64) for v in values]).tolist()
+
+
 def _pooled_selects(
     Rb, pp: PoolPlan, t_int, exact, W_fine, total_features, vpos_flat,
     classes, T, Kc, g, pool1, pool2, top_k, Wc, r_cap, plain,
@@ -847,7 +856,11 @@ def _pooled_selects(
     false = torch.zeros((), dtype=torch.bool, device=dev)
     tracing.count("batch")
 
-    coarse_of = _read_flag(pp.overflow)
+    # The coarse flag and the pool's true total in one transfer: the fill
+    # (pool.coarse_total over pool.coarse_slots) costs no sync of its own.
+    coarse_of, coarse_total = _read_scalars(pp.overflow, pp.total)
+    tracing.count("pool.coarse_total", coarse_total)
+    tracing.count("pool.coarse_slots", pool1)
     if coarse_of:
         # Coarse pool overflowed: the fine stage and the selects never run.
         tracing.count("pool.coarse_overflow")

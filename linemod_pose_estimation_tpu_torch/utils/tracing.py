@@ -17,6 +17,8 @@ thread):
 
   lpe.batch                   one BatchedMatcher / MultiClassBatchedMatcher step
     lpe.entry.h2d             the frames' copy to the device
+    lpe.entry.condition       raw camera frames conditioned on the device
+                              (mono -> 3 channels, blur, crop)
     lpe.preprocess            K1, pyrDown, K2 x4, DepthNormal
       lpe.preprocess.depth_normal   DepthNormal's quantization and median
     lpe.pool                  the pooled matcher
@@ -45,6 +47,10 @@ Counters:
   pool.coarse_overflow  the coarse pool overflowed
   pool.fine_overflow    the fine pool overflowed
   pool.select_overflow  a select range overflowed, the coarse pool did not
+  pool.coarse_total     the coarse pool's true survivors, summed over steps
+  pool.coarse_slots     the coarse pool's slots, summed over steps (read
+                        in the coarse flag's transfer: the fill costs no sync)
+  condition.frames      frames conditioned on the device
   multiclass.batch      steps through MultiClassBatchedMatcher
   multiclass.classes    its per-class selects: one a class a step
   extract.views         views that reach templates.extract_template

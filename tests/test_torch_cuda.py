@@ -642,6 +642,58 @@ def test_rgb_only_bank_on_the_card(cuda):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,kw", [((32, 480, 752), {}), ((32, 480, 752, 3), {}),
+                                      ((3, 37, 61), dict(bias_x=0, crop_w=61, crop_h=37)),
+                                      ((3, 37, 61, 3), dict(bias_x=5, crop_w=50, crop_h=30))])
+def test_condition_frames_on_the_card_equal_the_cpu(cuda, shape, kw):
+    """The service's conditioning over a batch (ops/features.py::
+    condition_frames) on the card, bit for bit the CPU's, which the CPU
+    tests hold to condition_frame: the Ensenso's B=32 mono and 3-channel
+    752x480 frames, and odd sizes whose crop reaches the wrapped edges."""
+    g = torch.Generator().manual_seed(shape[1] * 10 + len(shape))
+    frames = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
+    frames[:, 0] = 255
+    got = TF.condition_frames(frames.to(cuda), **kw)
+    assert got.is_cuda and got.is_contiguous()
+    assert torch.equal(got.cpu(), TF.condition_frames(frames, **kw))
+
+
+@pytest.mark.requires_cuda
+def test_conditioned_batch_on_the_card(cuda):
+    """BatchedMatcher with the service's conditioning over the colour-only
+    bank at its one-modality pools: raw mono 752-wide frames, copied once
+    and conditioned on the card, give the Matches of the same matcher on
+    the frames conditioned on the host, and of the plain path; the
+    conditioned batch syncs as often as the unconditioned one."""
+    from linemod_pose_estimation_tpu_torch.api.service import (Frame, FrameConditioning,
+                                                               condition_frame)
+
+    rgbs = np.load(CASCADE_GOLDEN)["rgb"]  # the cuboid at three bank poses, a background
+    c = rgbs.astype(np.int32)
+    mono = ((4899 * c[..., 0] + 9617 * c[..., 1] + 1868 * c[..., 2] + 8192) >> 14
+            ).astype(np.uint8)
+    wide = np.random.default_rng(5).integers(0, 256, (4, 480, 752), dtype=np.uint8)
+    wide[:, :, 56:696] = mono
+    host = np.stack([condition_frame(Frame(f, None)).rgb for f in wide])
+    td = Detector.read(RGB_BANK)
+    cid = td.class_ids[0]
+    make = lambda **k: BatchedMatcher(td, cid, 85.0, 4, device=cuda,
+                                      **slice_settings(4, modalities=1), **k)
+    runs = []
+    for m, frames in ((make(conditioning=FrameConditioning()), wide), (make(), host),
+                      (make(conditioning=FrameConditioning(), plain=True), wide)):
+        m.match_batch(frames)  # warm-up
+        tracing.reset()
+        runs.append((m.match_batch(frames), dict(tracing.counters)))
+    (got, cond), (want, host_counts), (plain, _) = runs
+    for a, b, p in zip(got, want, plain):
+        assert torch.equal(a, b) and torch.equal(a, p)
+    assert int(got.valid.sum()) > 0
+    assert cond.pop("condition.frames") == 4
+    assert cond == host_counts and cond["sync"] > 0
+
+
+@pytest.mark.requires_cuda
 def test_k5_chain_and_two_object_kernels_equal_plain(cuda):
     """The exhaustive mode's candidates through the K5 refiner, and the
     two-object matcher (the bank under two class ids), kernels against

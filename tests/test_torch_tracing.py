@@ -4,21 +4,28 @@ With no profiler running, a pooled batch step and a two-chunk training
 enter no ``record_function`` while their counters count; under
 ``torch.profiler`` the exported trace holds each ``lpe.*`` span nested in
 its parent; a batch forced into each pool overflow moves exactly its own
-counter, in agreement with the step's PooledStats; and the extraction's
+counter, in agreement with the step's PooledStats, beside the coarse
+pool's fill, which rides on the coarse flag's one transfer (three flag
+reads a step, as before); a batch of raw mono frames conditioned on the
+device counts its frames under its own span; and the extraction's
 candidate counter equals the rows that enter the scattered selection.
 
 The batch steps run on 240x320 crops of the committed scenes with a
 64-template subset of the committed RGB-D bank (its templates do not fit
-160x120 frames); the trainer renders the cuboid stand-in at 160x120.
+160x120 frames), the conditioned steps on the same crops in mono, widened
+to 376 columns, with the subset of the colour-only bank; the trainer
+renders the cuboid stand-in at 160x120.
 """
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
 import _xdist_threads  # noqa: F401  (PyTorch threads per xdist worker)
 
+from linemod_pose_estimation_tpu_torch.api.service import FrameConditioning
 from linemod_pose_estimation_tpu_torch.models import templates as TT
 from linemod_pose_estimation_tpu_torch.models import trainer as TTR
 from linemod_pose_estimation_tpu_torch.models.detector import Detector
@@ -31,6 +38,7 @@ from linemod_pose_estimation_tpu_torch.utils.stl import save_binary_stl
 from linemod_pose_estimation_tpu_torch.utils.viewsphere import ViewSphereParams
 
 BANK = "data/boxNew_rgbd_templates.yml.gz"
+RGB_BANK = "data/boxNew_full_templates.yml.gz"
 THR = 70.0
 VIEWS = 8  # the small sphere's views: two chunks of 4
 
@@ -57,7 +65,9 @@ TRAIN_PARENT = {
 }
 # the merged matcher's own steps around its walk
 MULTICLASS_PARENT = {"lpe.merge": "lpe.batch", "lpe.split": "lpe.batch"}
-PARENT = {**BATCH_PARENT, **MULTICLASS_PARENT, **TRAIN_PARENT}
+# raw camera frames conditioned on the device
+CONDITION_PARENT = {"lpe.entry.condition": "lpe.batch"}
+PARENT = {**BATCH_PARENT, **MULTICLASS_PARENT, **CONDITION_PARENT, **TRAIN_PARENT}
 # the pool's tiers and flag reads, which follow one another
 POOL_PARTS = ("lpe.pool.coarse", "lpe.sync", "lpe.pool.fine", "lpe.pool.exact",
               "lpe.pool.fallback")
@@ -87,6 +97,24 @@ def crops():
 
 
 @pytest.fixture(scope="module")
+def rgb_sub_detector():
+    det = Detector.read(RGB_BANK, device="cpu")
+    cid = det.class_ids[0]
+    bank = det.bank(cid)
+    sub = Detector(bank.params, device="cpu")
+    sub.attach_bank(TemplateBank(cid, bank.params,
+                                 [bank.templates[i] for i in S.CROP_BANK_SUBSET]))
+    return sub, cid
+
+
+def wide_mono(crops) -> np.ndarray:
+    """The crops in mono (BT.601 luma), 28 columns of zeros either side."""
+    c = crops[0].astype(np.int32)
+    m = (4899 * c[..., 0] + 9617 * c[..., 1] + 1868 * c[..., 2] + 8192) >> 14
+    return np.pad(m.astype(np.uint8), ((0, 0), (0, 0), (28, 28)))
+
+
+@pytest.fixture(scope="module")
 def stl(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("mesh") / "cuboid.stl")
     save_binary_stl(path, S.cuboid_mesh().triangles)
@@ -108,11 +136,17 @@ def train_config():
         detector=DetectorParams(use_depth_normal=True))
 
 
-def run_steps(kind, sub_detector, crops, stl):
+def run_steps(kind, sub_detector, crops, stl, rgb_sub_detector=None):
     """One step of `kind`: a pooled batch, a pooled batch that falls back
-    (select range of 1 row) and a two-class pooled batch, or a training of
-    two chunks."""
-    if kind == "match_batch":
+    (select range of 1 row) and a two-class pooled batch, a pooled batch of
+    conditioned raw mono frames, or a training of two chunks."""
+    if kind == "conditioned":
+        sub, cid = rgb_sub_detector
+        BatchedMatcher(sub, cid, THR, crops[0].shape[0], top_k=64, prune=True,
+                       prune_mode="pooled", device="cpu",
+                       conditioning=FrameConditioning(28, 320, 240)).match_batch(
+                           wide_mono(crops))
+    elif kind == "match_batch":
         for kw in ({}, dict(sel_row_cap=1)):
             pooled(sub_detector, crops, **kw).match_batch(*crops)
     elif kind == "multiclass":
@@ -148,29 +182,38 @@ def test_counters_count_reset_and_launches():
     assert tracing.counters == {} and set(tracing.launches().values()) == {0}
 
 
-@pytest.mark.parametrize("kind", ["match_batch", "train"])
+@pytest.mark.parametrize("kind", ["match_batch", "conditioned", "train"])
 def test_untraced_steps_enter_no_record_function(kind, sub_detector, crops, stl,
-                                                 monkeypatch):
+                                                 rgb_sub_detector, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("record_function entered with no profiler running")
 
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
-    run_steps(kind, sub_detector, crops, stl)
+    run_steps(kind, sub_detector, crops, stl, rgb_sub_detector)
+    B = crops[0].shape[0]
+    if kind != "train":
+        # the coarse pool's default 64 slots a frame, a step; no device, no sync
+        steps = 2 if kind == "match_batch" else 1
+        assert tracing.counters.pop("pool.coarse_slots") == steps * 64 * B
+        assert tracing.counters.pop("pool.coarse_total") > 0
     if kind == "match_batch":
-        # two pooled steps, the second falling back; no device, no sync
+        # two pooled steps, the second falling back
         assert tracing.counters == {"batch": 2, "pool.select_overflow": 1}
+    elif kind == "conditioned":
+        assert tracing.counters == {"batch": 1, "condition.frames": B}
     else:
         assert tracing.counters["extract.views"] == VIEWS
         assert tracing.counters["extract.candidates"] > 0
 
 
-@pytest.mark.parametrize("kind", ["match_batch", "multiclass", "train"])
-def test_traced_spans_nest_in_their_parents(kind, sub_detector, crops, stl, tmp_path):
+@pytest.mark.parametrize("kind", ["match_batch", "multiclass", "conditioned", "train"])
+def test_traced_spans_nest_in_their_parents(kind, sub_detector, crops, stl, rgb_sub_detector,
+                                            tmp_path):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        run_steps(kind, sub_detector, crops, stl)
+        run_steps(kind, sub_detector, crops, stl, rgb_sub_detector)
     path = str(tmp_path / "trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -187,13 +230,18 @@ def test_traced_spans_nest_in_their_parents(kind, sub_detector, crops, stl, tmp_
         assert len(spans["lpe.extract.grad"]) == len(spans["lpe.extract.norm"]) == 2 * VIEWS
     else:
         want = set(BATCH_PARENT) | {"lpe.batch"}
-        if kind == "multiclass":
+        if kind != "match_batch":
             want -= {"lpe.pool.fallback", "lpe.pool.fallback.select"}  # no fallback
+        if kind == "multiclass":
             want |= set(MULTICLASS_PARENT)
+        if kind == "conditioned":  # colour alone: no DepthNormal
+            want = (want - {"lpe.preprocess.depth_normal"}) | set(CONDITION_PARENT)
         assert set(spans) == want
         steps = 2 if kind == "match_batch" else 1
         assert len(spans["lpe.batch"]) == len(spans["lpe.pool"]) == steps
-        assert len(spans["lpe.sync"]) == 3 * steps  # coarse, fine, fallback flags
+        # three host transfers a step: the coarse flag with the pool's total,
+        # the fine flag, the fallback flag
+        assert len(spans["lpe.sync"]) == 3 * steps
         parts = sorted(iv for n in POOL_PARTS for iv in spans.get(n, []))
         assert all(a[1] <= b[0] for a, b in zip(parts, parts[1:]))  # no overlap
     for child, ivs in spans.items():
@@ -217,8 +265,9 @@ def test_each_overflow_moves_its_own_counter(case, sub_detector, crops):
     kw, moved = OVERFLOWS[case]
     m = pooled(sub_detector, crops, **kw)
     m.match_batch(*crops)
-    assert tracing.counters == {"batch": 1, **moved}
     st = m.last_pool
+    assert tracing.counters == {"batch": 1, "pool.coarse_total": int(st.coarse_total),
+                                "pool.coarse_slots": m.pool_coarse, **moved}
     c = lambda name: tracing.counters.get(name, 0)
     assert c("pool.coarse_overflow") == int(st.coarse_overflow)
     assert c("pool.fine_overflow") == int(st.fine_overflow)
