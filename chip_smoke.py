@@ -25,11 +25,12 @@ line each:
       (tests/data/torch_port_golden.npz);
   2b. B=32 over the bank tiled to 10,624 templates: the kernel path equals
       the plain path (every Matches field); launch counts of K1/K2/K3 in
-      that run (DN and XS exactly once; none in the plain run), the
+      that run (DN and XS exactly once, BM three times; none in the plain run), the
       matcher's exact weights without a dense one-hot operand,
       PooledStats, found rate, batch time;
   2c. the same batch with pool_coarse forced tiny: the exhaustive fallback
-      runs (XS and TK once each) and the Matches equal 2b's;
+      runs (XS and TK once each, BM for the group and cell tiers alone)
+      and the Matches equal 2b's;
   2d. XS (the exact coarse scorer) against its plain twin and the int8
       GEMM route it replaced, bitwise, on 2b's level-1 responses and
       tiled bank: every cell of the batch (the fallback's call) and a
@@ -40,6 +41,13 @@ line each:
       10,624 templates, k 128) on XS's scores of them, timed beside its
       bound, the plain twin and the library call at its core (torch.topk
       over the batch's unique int64 keys, built beforehand: library_ms);
+  2f. BM (the bound margins) against its plain twin, bitwise, on the
+      operands of 2b's three launches (the group, cell and fine tiers,
+      captured from one pooled batch), timed beside its bound, the plain
+      twin (torch._int_mm and the (M, N) epilogue it replaced, which is
+      also library_ms) and torch._int_mm alone (gemm_ms); the batch's
+      peak device memory over the bound tiers' (M, N) int32; then on
+      utils/kernel_cases.py's odd operand sets;
   3. K3 against its plain version on 2b's candidate sets, bitwise, timed
      with its bound; then on odd plans (utils/kernel_cases.py: frames
      with n_valid = 0, walked slots with every feature dead, F = 37 and
@@ -232,8 +240,9 @@ card it exits 2 before doing anything.
     python3 chip_smoke.py --only parallel
     python3 chip_smoke.py --only exact
     python3 chip_smoke.py --only select
+    python3 chip_smoke.py --only bounds
 
-build the kernels and run phase 10, 11, 12, 13, 14, 2d or 2e alone (a quick
+build the kernels and run phase 10, 11, 12, 13, 14, 2d, 2e or 2f alone (a quick
 check on a card); they print no summary and no last line.
 """
 
@@ -330,11 +339,15 @@ KERNELS = {
     "select_topk": ("TK", "linemod_pose_estimation_tpu_torch/csrc/select_topk.cu",
                     "none (the reference selects with jax.lax.top_k: "
                     "linemod_pose_estimation_tpu/ops/match.py:2006)"),
+    "bound_margins": ("BM", "linemod_pose_estimation_tpu_torch/csrc/bound_margins.cu",
+                      "none (the reference's bounds are an XLA dot_general and a margin "
+                      "max: linemod_pose_estimation_tpu/ops/match.py:609)"),
 }
 # library_ms of the kernels that have one: what that call is
 LIBRARY_NOTES = {
     "exact_scores": "the int8 GEMM route it replaced: the patch rows, torch._int_mm",
     "select_topk": "torch.topk over the batch's (B, P*N) unique int64 keys, built beforehand",
+    "bound_margins": "torch._int_mm and the (M, N) int32 epilogue it replaced (the plain twin)",
 }
 # XS's rows in phase 2d: a frame-major list of 36 rows a frame (the exact
 # tier's fine pool at B=32), drawn from this seed.
@@ -591,6 +604,91 @@ def select_phase(dev: torch.device, perf: dict) -> None:
         valid=int((vals >= THRESHOLD - 5.0).sum()), bound=RL.select_topk(B, P, N, k)._asdict())
     del keys, raw
     emit("select_vs_plain", TK=perf["select_topk"])
+
+
+def peak_bytes(fn) -> int:
+    """The device memory fn() allocates at its peak beyond what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def bound_margins_vs_plain(args) -> dict:
+    """BM on one launch's operands against its plain twin (torch._int_mm
+    and the (M, N) epilogue it replaced: plain_ms, also library_ms),
+    bitwise, both timed, with torch._int_mm alone (gemm_ms), the launch's
+    bound over its live rows, and the memory each allocates at its peak:
+    the kernel's must stay under one (M, N) bool mask."""
+    from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
+    from linemod_pose_estimation_tpu_torch.ops import roofline as RL
+
+    A, nk, n, t, vpos, pos, keep, sentinel = args
+    kern = lambda: CK.bound_margins(*args)
+    plain = lambda: CK.bound_margins_plain(*args)
+    err = max_abs_err(kern(), plain())
+    require(err == 0, f"BM differs from its plain twin at {tuple(A.shape)} x {n}")
+    M, K = A.shape
+    live = M if keep is None else int(keep.sum())
+    peak, plain_peak = peak_bytes(kern), peak_bytes(plain)
+    require(peak < M * n, f"BM allocated {peak} bytes at {M} x {n}: an (M, N) operand")
+    plain_ms = cuda_ms(plain, 3)
+    return dict(**kernel_times(kern, "bound_margins"), plain_ms=plain_ms, library_ms=plain_ms,
+                gemm_ms=cuda_ms(lambda: CK.int8_product(A, nk, n), 3), max_abs_err=err,
+                rows=M, live_rows=live, templates=n, contraction=K, peak_bytes=peak,
+                plain_peak_bytes=plain_peak,
+                bound=RL.bound_margins(live, n, K, vpos.shape[0])._asdict())
+
+
+def bounds_phase(dev: torch.device, perf: dict, matcher=None, rgbs=None, deps=None) -> None:
+    """Phase 2f: BM on the operands of its three launches in one pooled
+    B=32 batch over the tiled bank (phase 2b's matcher and frames, built
+    here when not given), captured from the call, against its plain twin;
+    the group and cell tiers' peak device memory (pool_plan_grouped's,
+    under the (M, N) int32 bound they held before); then the odd operand
+    sets."""
+    from linemod_pose_estimation_tpu_torch.models.detector import Detector
+    from linemod_pose_estimation_tpu_torch.models.serving import BatchedMatcher, slice_settings
+    from linemod_pose_estimation_tpu_torch.ops import cuda_kernels as CK
+    from linemod_pose_estimation_tpu_torch.ops import match as M
+    from linemod_pose_estimation_tpu_torch.utils import kernel_cases as KC
+    from linemod_pose_estimation_tpu_torch.utils import scenes as S
+
+    if matcher is None:
+        det = Detector.read(BANK)
+        cid = det.class_ids[0]
+        bank = det.bank(cid)
+        det.attach_bank(bank.tile(-(-10240 // bank.num_templates), TILE_TO))
+        matcher = BatchedMatcher(det, cid, THRESHOLD, B_MAIN, device=dev,
+                                 **slice_settings(B_MAIN))
+        rgbs_np, deps_np, _ = S.bin_picking_batch(B_MAIN, seed=3)
+        rgbs, deps = torch.from_numpy(rgbs_np).to(dev), torch.from_numpy(deps_np).to(dev)
+    matcher.candidates(rgbs, deps)  # warm-up
+    calls = calls_of([(CK, "bound_margins"), (M, "pool_plan_grouped")],
+                     lambda: matcher.candidates(rgbs, deps))
+    launches = calls.get("bound_margins", [])
+    require(len(launches) == 3, f"a pooled batch launched BM {len(launches)} times, not 3")
+    (tiers,) = calls["pool_plan_grouped"]
+    tiers_peak = peak_bytes(lambda: M.pool_plan_grouped(*tiers))
+    P = launches[0][4].shape[0]
+    rows_x_templates = B_MAIN * P * matcher.weights.W_cell.n
+    require(tiers_peak < rows_x_templates,
+            f"the group and cell tiers allocated {tiers_peak} bytes: an (M, N) operand")
+    for name, args in zip(("group", "cell", "fine"), launches):
+        A, _, n = args[:3]
+        perf["bound_margins"][f"{name}_{A.shape[0]}x{n}x{A.shape[1]}"] = \
+            bound_margins_vs_plain(args)
+    del calls, launches, tiers
+    for name in KC.BOUND_MARGIN_CASES:
+        args = KC.bound_margin_case(name, dev)
+        require(max_abs_err(CK.bound_margins(*args), CK.bound_margins_plain(*args)) == 0,
+                f"BM differs from its plain twin on {name}")
+    perf["bound_margins"]["odd_cases"] = dict(max_abs_err=0, cases=list(KC.BOUND_MARGIN_CASES))
+    emit("bounds_vs_plain", BM=perf["bound_margins"], tiers_peak_bytes=tiers_peak,
+         cell_tier_int32_bytes=4 * rows_x_templates)
 
 
 def raster_times(coefs, w: int, h: int) -> dict:
@@ -2592,6 +2690,10 @@ def main() -> int:
         select_phase(dev, perf)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "bounds"]:
+        bounds_phase(dev, perf)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2699,6 +2801,8 @@ def main() -> int:
         require(launches[k] > 0, f"kernel {k} was not launched on the main path")
     require(launches["depth_normal"] == 1, "DN did not launch once in the main-path batch")
     require(launches["exact_scores"] == 1, "XS did not launch once in the main-path batch")
+    require(launches["bound_margins"] == 3,
+            "BM did not launch three times (group, cell, fine) in the main-path batch")
     require(main_m.weights.exact.dense is None,
             "the main-path matcher holds a dense one-hot operand on the card")
     stats = main_m.last_pool
@@ -2742,6 +2846,8 @@ def main() -> int:
     require(bool(fb.last_pool.fallback), "forced tiny pool did not fall back")
     require(launches_fb["exact_scores"] == 1 and launches_fb["select_topk"] == 1,
             f"the fallback batch did not launch XS and TK once each: {launches_fb}")
+    require(launches_fb["bound_margins"] == 2,
+            f"the fallback batch did not launch BM for its group and cell tiers: {launches_fb}")
     _, c_pool, nv_pool = main_m.candidates(rgbs, deps)
     require(torch.equal(nv_fb, nv_pool), "fallback n_valid != pooled n_valid")
     require(valid_equal(c_fb, c_pool), "fallback candidates != pooled candidates")
@@ -2755,6 +2861,9 @@ def main() -> int:
 
     # -- phase 2e: TK vs its plain twin at the fullbin shape -----------------
     select_phase(dev, perf)
+
+    # -- phase 2f: BM vs its plain twin on the batch's three launches --------
+    bounds_phase(dev, perf, main_m, rgbs, deps)
 
     # -- phase 3: K3 vs plain on the tiled batch's candidate sets ------------
     R0, cands, n_valid = main_m.candidates(rgbs, deps)
@@ -2792,7 +2901,7 @@ def main() -> int:
     launches14 = parallel_phase(dev)
 
     # -- summary -------------------------------------------------------------
-    # launches: of one B=32 pooled batch (phase 2b) for K1-K3 and XS, of one detect
+    # launches: of one B=32 pooled batch (phase 2b) for K1-K3, XS and BM, of one detect
     # (phase 6) for K2b and K4, of one K5 chain (phase 7) for K5, of one B=32
     # fallback batch (phase 2c) for TK.  ms, plain
     # and bound: summed over the shapes of those launches; the other timed

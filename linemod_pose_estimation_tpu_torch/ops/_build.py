@@ -29,7 +29,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = ("quantize_cg.cu", "spread_response.cu", "walk_scores.cu",
            "raster_zbuffer.cu", "refine_scores.cu", "depth_normal.cu",
-           "exact_scores.cu", "select_topk.cu")
+           "exact_scores.cu", "select_topk.cu", "bound_margins.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # No FMA contraction: fastAtan2's polynomial (K1), the rasterizer's
@@ -64,6 +64,9 @@ _SIGNATURES = {
     # (raw, scale, vpos, hist, state, cand_key, cand_idx, cand_cnt, eq_idx,
     #  eq_cnt, vals, idx, B, P, N, k, G, device, stream)
     "lpe_select_topk": (_P,) * 12 + (_I,) * 6 + (_P,),
+    # (A, W, t, vpos, pos or NULL, keep or NULL, out, M, n, w_rows, K, P, vstride,
+    #  sentinel, device, stream)
+    "lpe_bound_margins": (_P,) * 7 + (_I,) * 8 + (_P,),
 }
 
 _lib = None

@@ -1,15 +1,17 @@
 """Kernels K2 (spread + response maps, ``csrc/spread_response.cu``), K3
 (cv::linemod's 16 x 16 local walk, ``csrc/walk_scores.cu``), K5 (dense
 window scores around coarse candidates, ``csrc/refine_scores.cu``), XS
-(the exact coarse scorer, ``csrc/exact_scores.cu``) and TK (the
-exhaustive select's top-k, ``csrc/select_topk.cu``), each with its plain
+(the exact coarse scorer, ``csrc/exact_scores.cu``), TK (the
+exhaustive select's top-k, ``csrc/select_topk.cu``) and BM (the pooled
+tiers' bound margins, ``csrc/bound_margins.cu``), each with its plain
 PyTorch version beside it.
 
 K2 replaces ``linemod_pose_estimation_tpu/ops/pallas_kernels.py::
 spread_response_batched``; K3 replaces ``walk_scores_pallas``; K5
 replaces ``refine_scores_pallas``.  XS replaces no Pallas kernel: the
 reference's exact coarse scores are an XLA dot_general over one-hot
-weights; nor does TK: the reference selects with jax.lax.top_k.  A CPU
+weights; nor does TK: the reference selects with jax.lax.top_k; nor does
+BM: the reference's bounds are a dot_general and a margin max.  A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -537,3 +539,94 @@ def select_topk(raw: torch.Tensor, scale: torch.Tensor, vpos: torch.Tensor, k: i
     _build.check(err, "select_topk")
     tracing.count("launch.select_topk")
     return vals, idx
+
+
+# ---------------------------------------------------------------------------
+# BM: the pooled tiers' bound margins
+# ---------------------------------------------------------------------------
+
+BM_ROWS, BM_COLS = 128, 256  # BM's output tile: rows, templates
+INT32_MIN = -(2**31)
+
+
+def int8_product(a: torch.Tensor, nk: torch.Tensor, n: int) -> torch.Tensor:
+    """(m, k) int8 x the first n rows of the K-major (>= n, k) int8 weight
+    nk, transposed -> (m, n) int32, exact (torch._int_mm).  cuBLASLt's
+    int8 path takes m > 16, so short operands are zero-padded on the card."""
+    m = a.shape[0]
+    if a.is_cuda and m <= 16:
+        a = torch.nn.functional.pad(a, (0, 0, 0, 17 - m))
+    return torch._int_mm(a.contiguous(), nk.t())[:m, :n]
+
+
+def bound_margins_plain(A: torch.Tensor, nk: torch.Tensor, n: int, t: torch.Tensor,
+                        vpos: torch.Tensor, pos: torch.Tensor | None = None,
+                        keep: torch.Tensor | None = None, sentinel: int = INT32_MIN
+                        ) -> torch.Tensor:
+    """Row margins (M,) int32: max over the n templates of (valid ?
+    ub - t : sentinel), ub = A (M, K) int8 times nk's first n rows (the
+    int8 bound), valid = vpos[row's position] & keep[row]; the position is
+    pos[m], or m % P with pos None (the rows of every position of B
+    frames); keep None keeps every row.  vpos (P, n) bool, t (n,) int32."""
+    M = A.shape[0]
+    rows = torch.arange(M, device=A.device) % vpos.shape[0] if pos is None else pos.long()
+    valid = vpos[rows]
+    if keep is not None:
+        valid = valid & keep[:, None]
+    return torch.where(valid, int8_product(A, nk, n) - t[None, :], sentinel).amax(dim=1)
+
+
+def bound_margins(A: torch.Tensor, nk: torch.Tensor, n: int, t: torch.Tensor,
+                  vpos: torch.Tensor, pos: torch.Tensor | None = None,
+                  keep: torch.Tensor | None = None, sentinel: int = INT32_MIN
+                  ) -> torch.Tensor:
+    """BM: bound_margins_plain's (M,) int32, bit for bit, with the int8
+    product and its epilogue in one kernel (csrc/bound_margins.cu): no (M,
+    n) bound or mask reaches device memory.  What bounds it is the int8
+    tensor cores.  Operands as the plain version's, n >= 1; a contraction
+    K off a multiple of 16 (the tensor maps' stride unit) is zero-padded,
+    and validity rows off a multiple of 8 bytes are copied padded."""
+    if A.device.type == "cpu":
+        return bound_margins_plain(A, nk, n, t, vpos, pos, keep, sentinel)
+    if A.dim() != 2 or nk.dim() != 2 or nk.shape[1] != A.shape[1]:
+        raise ValueError(f"A (M, K) and nk (>= n, K): got {tuple(A.shape)}, {tuple(nk.shape)}")
+    M, K = A.shape
+    if not 1 <= n <= nk.shape[0]:
+        raise ValueError(f"n={n}: nk has {nk.shape[0]} rows")
+    if not INT32_MIN <= sentinel < 2**31:
+        raise ValueError(f"sentinel={sentinel} is not an int32")
+    dev = A.device
+    P = vpos.shape[0]
+    if K % 16:
+        A = torch.nn.functional.pad(A, (0, -K % 16))
+        nk = torch.nn.functional.pad(nk, (0, -K % 16))
+    A, nk = A.contiguous(), nk.contiguous()
+    A = A if A.data_ptr() % 16 == 0 else A.clone()
+    nk = nk if nk.data_ptr() % 16 == 0 else nk.clone()
+    _build.require(A, "A", torch.int8, device=dev)
+    _build.require(nk, "nk", torch.int8, device=dev)
+    vpos = vpos.contiguous()
+    _build.require(vpos, "vpos", torch.bool, (P, n), dev)
+    if n % 8 or vpos.data_ptr() % 8:  # the kernel reads a row in aligned 8-byte chunks
+        vpos = torch.nn.functional.pad(vpos, (0, -n % 8))
+    _build.require(t, "t", torch.int32, (n,), dev)
+    n_tiles, m_tiles = -(-n // BM_COLS), -(-M // BM_ROWS)
+    t = torch.nn.functional.pad(t, (0, n_tiles * BM_COLS - n))
+    if pos is not None:
+        pos = pos.contiguous()
+        _build.require(pos, "pos", torch.int64, (M,), dev)
+    if keep is not None:
+        _build.require(keep, "keep", torch.bool, (M,), dev)
+        keep = torch.nn.functional.pad(keep.to(torch.uint8), (0, m_tiles * BM_ROWS - M))
+    out = torch.full((M,), INT32_MIN, dtype=torch.int32, device=dev)
+    if M == 0:
+        return out
+    lib = _build.library()
+    err = lib.lpe_bound_margins(
+        A.data_ptr(), nk.data_ptr(), t.data_ptr(), vpos.data_ptr(),
+        None if pos is None else pos.data_ptr(), None if keep is None else keep.data_ptr(),
+        out.data_ptr(), M, n, nk.shape[0], A.shape[1], P, vpos.shape[1], sentinel,
+        *_build.device_and_stream(A))
+    _build.check(err, "bound_margins")
+    tracing.count("launch.bound_margins")
+    return out

@@ -348,12 +348,20 @@ def build_bank_weights(
 
 
 def int8_mm(a: torch.Tensor, w: MatmulWeight) -> torch.Tensor:
-    """(m, k) int8 x (k, n) int8 -> (m, n) int32, exact.  cuBLASLt's int8
-    path takes m > 16, so short operands are zero-padded on the card."""
-    m = a.shape[0]
-    if a.is_cuda and m <= 16:
-        a = torch.nn.functional.pad(a, (0, 0, 0, 17 - m))
-    return torch._int_mm(a.contiguous(), w.nk.t())[:m, :w.n]
+    """(m, k) int8 x (k, n) int8 -> (m, n) int32, exact (CK.int8_product)."""
+    return CK.int8_product(a, w.nk, w.n)
+
+
+def bound_margins(A: torch.Tensor, W: MatmulWeight, t: torch.Tensor, vpos: torch.Tensor,
+                  pos: torch.Tensor | None, keep: torch.Tensor | None, sentinel: int,
+                  plain: bool = False) -> torch.Tensor:
+    """Row margins (M,) int32 of the int8 bound int8_mm(A, W): max over
+    the templates of ub - t where vpos[pos[m]] (vpos[m % P] with pos None)
+    and keep[m] (every row with keep None), else `sentinel`.  On a card
+    kernel BM (its plain twin with `plain`), on the CPU the plain twin;
+    the pooled tiers' one seam for their bounds."""
+    bm = CK.bound_margins_plain if plain or not A.is_cuda else CK.bound_margins
+    return bm(A, W.nk, W.n, t, vpos, pos, keep, sentinel)
 
 
 # ---------------------------------------------------------------------------
@@ -563,17 +571,17 @@ def position_margins_batched(
     threshold: float,
     T: int,
     Kc: int,
+    plain: bool = False,
 ) -> torch.Tensor:
     """(B, P) int32 margins max_n(ub(p, n) - t_int[n]) over the cell-max
-    bound, invalid positions at a deep sentinel.  int32 throughout (the
-    reference's int16 branch is a TPU bandwidth trick; both give the same
-    margin wherever it is >= 0, the only test any caller makes)."""
+    bound, invalid positions at a deep sentinel (bound_margins, `plain` as
+    there).  int32 throughout (the reference's int16 branch is a TPU
+    bandwidth trick; both give the same margin wherever it is >= 0, the
+    only test any caller makes)."""
     B, C, H, W = Rb.shape
-    P = (H // T) * (W // T)
-    ub = int8_mm(_ub_patches(Rb, T, Kc), W_cell).reshape(B, P, -1)
     t_int = int_score_threshold(threshold, total_features).to(torch.int32)
-    margin = torch.where(vpos_flat[None], ub - t_int, torch.iinfo(torch.int32).min)
-    return margin.amax(dim=2)
+    return bound_margins(_ub_patches(Rb, T, Kc), W_cell, t_int, vpos_flat, None, None,
+                         torch.iinfo(torch.int32).min, plain).reshape(B, -1)
 
 
 def gather_windows_pooled(
@@ -602,41 +610,32 @@ def pool_plan_grouped(
     pool0: int,
     pool1: int,
     group: int,
+    plain: bool = False,
 ) -> PoolPlan:
     """Two-tier pooled planning: the group-max pre-bound over every
     position -> a loose frame-major pool (pool0), then the per-template
     cell bound at those pooled positions only -> the exact eligible set
-    position_margins_batched would give (pool1)."""
+    position_margins_batched would give (pool1).  Both tiers' margins
+    through bound_margins (`plain` as there)."""
     B, C, H, W = Rb.shape
-    Hc, Wc_ = H // T, W // T
-    P = Hc * Wc_
+    P = (H // T) * (W // T)
     N = total_features.shape[0]
     Ng = group_counts.shape[0]
 
     # Tier 0: group bound at every position.
-    ubg = int8_mm(_ub_patches(Rb, T, Kc), W_group)  # (B*P, Ng)
     t_int = int_score_threshold(threshold, total_features).to(torch.int32)
     t_pad = torch.nn.functional.pad(t_int, (0, Ng * group - N)).reshape(Ng, group)
     t_g = torch.where(group_counts > 0, t_pad, 2**30).amin(dim=1)
     vpad = torch.nn.functional.pad(vpos_flat, (0, Ng * group - N))
     vpos_g = vpad.reshape(P, Ng, group).any(dim=2)  # (P, Ng)
-    margin_g = torch.where(vpos_g.repeat(B, 1), ubg - t_g[None, :], _NEG)
-    pp0 = pool_plan_from_margins(margin_g.amax(dim=1).reshape(B, P), pool0)
+    Pall = _ub_patches(Rb, T, Kc)  # (B*P, Kc*Kc*C), C a multiple of 8
+    margin_g = bound_margins(Pall, W_group, t_g, vpos_g, None, None, _NEG, plain)  # (B*P,)
+    pp0 = pool_plan_from_margins(margin_g.reshape(B, P), pool0)
 
-    # Tier 1: per-template cell bound at the pooled positions only.
-    Mp = torch.nn.functional.pad(
-        _cell_max(Rb, T).permute(0, 2, 3, 1), (0, 0, 0, Kc, 0, Kc)
-    ).to(torch.int8)  # (B, Hc+Kc, Wc+Kc, C)
-    Hy = Hc + Kc
-    L3 = Mp.reshape(B * Hy, Wc_ + Kc, C)
-    Pub = gather_windows_pooled(
-        L3, pp0.frame * Hy + torch.div(pp0.pos, Wc_, rounding_mode="floor"),
-        pp0.pos % Wc_, Kc,
-    )
-    ub = int8_mm(Pub, W_cell)  # (M0, N)
-    margin = torch.where(vpos_flat[pp0.pos] & pp0.keep[:, None],
-                         ub - t_int[None, :], _NEG)
-    elig = margin.amax(dim=1) >= 0
+    # Tier 1: per-template cell bound at the pooled positions only: their
+    # rows of tier 0's patch matrix, gathered 8 bytes at a time.
+    Pub = Pall.view(torch.int64)[pp0.frame * P + pp0.pos].view(torch.int8)
+    elig = bound_margins(Pub, W_cell, t_int, vpos_flat, pp0.pos, pp0.keep, _NEG, plain) >= 0
     idx, keep, total = _compact_eligible_flat(elig, pool1)
     m_surv = _per_frame_counts(pp0.frame, elig, B)
     return PoolPlan(
@@ -656,6 +655,14 @@ def fine_ub_at_pool(
     g: int,
 ) -> torch.Tensor:
     """g x g subcell upper bound at pool candidates: (M, N) int32."""
+    return int8_mm(_fine_patches(Rb, frame, pos, T, Kc, g), W_fine)
+
+
+def _fine_patches(Rb: torch.Tensor, frame: torch.Tensor, pos: torch.Tensor, T: int, Kc: int,
+                  g: int) -> torch.Tensor:
+    """(M, KS*KS*C) int8 subcell-max patch rows of the pool candidates
+    (frame[m], flat cell pos[m]), KS = Kc * T / g; column order matches
+    build_cell_weights_fine's."""
     B, C, H, W = Rb.shape
     Wc_ = W // T
     S = T // g
@@ -669,7 +676,7 @@ def fine_ub_at_pool(
     L3 = Pp.reshape(B * Hy, Ws + KS, C)
     row0 = frame * Hy + torch.div(pos, Wc_, rounding_mode="floor") * S
     col0 = (pos % Wc_) * S
-    return int8_mm(gather_windows_pooled(L3, row0, col0, KS), W_fine)
+    return gather_windows_pooled(L3, row0, col0, KS)
 
 
 def _survivor_patches(Rb: torch.Tensor, frame: torch.Tensor, pos: torch.Tensor,
@@ -808,11 +815,11 @@ def match_pooled_fine_with_fallback(
             if W_group is not None:
                 pp = pool_plan_grouped(
                     Rb, W_cell, W_group, group_counts, total_features, vpos_flat,
-                    threshold, T, Kc, pool0, pool1, group,
+                    threshold, T, Kc, pool0, pool1, group, plain,
                 )
             else:
                 margins = position_margins_batched(
-                    Rb, W_cell, total_features, vpos_flat, threshold, T, Kc
+                    Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, plain
                 )
                 pp = pool_plan_from_margins(margins, pool1)
             t_int = int_score_threshold(threshold, total_features).to(torch.int32)
@@ -874,10 +881,8 @@ def _pooled_selects(
         fine_m = torch.zeros(B, dtype=torch.int64, device=dev)
     else:
         with tracing.span("lpe.pool.fine"):
-            ubf = fine_ub_at_pool(Rb, pp.frame, pp.pos, W_fine, T, Kc, g)
-            fmargin = torch.where(vpos_flat[pp.pos] & pp.keep[:, None],
-                                  ubf - t_int[None, :], _NEG)
-            felig = fmargin.amax(dim=1) >= 0
+            felig = bound_margins(_fine_patches(Rb, pp.frame, pp.pos, T, Kc, g), W_fine,
+                                  t_int, vpos_flat, pp.pos, pp.keep, _NEG, plain) >= 0
             fine_m = _per_frame_counts(pp.frame, felig, B)
             idx2, keep2, fine_total = _compact_eligible_flat(felig, P2)
             of2 = fine_total > P2
@@ -1094,17 +1099,18 @@ def prune_positions_batched(
     T: int,
     Kc: int,
     m_cap: int,
+    plain: bool = False,
 ) -> PrunePlan:
     """Position-axis-only pruning: the int-domain cell-max margins
-    (position_margins_batched) -> each frame's m_cap highest-margin
-    eligible positions, ties to the lower cell.  The template axis of the
+    (position_margins_batched, `plain` as there) -> each frame's m_cap
+    highest-margin eligible positions, ties to the lower cell.  The template axis of the
     plan is the identity, so the exact GEMM keeps the static weights.
     Every (position, template) whose exact score reaches threshold
     survives: the bound dominates the exact response at every feature."""
     N = W_cell.n
     dev = Rb.device
     p_score = position_margins_batched(
-        Rb, W_cell, total_features, vpos_flat, threshold, T, Kc)
+        Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, plain)
     p_elig = p_score >= 0
     m_surv = _count_i32(p_elig, 1)
     km = min(m_cap, p_score.shape[1])
@@ -1275,7 +1281,7 @@ def match_coarse_pruned_fine_with_fallback(
     if T % g != 0:
         raise ValueError(f"g={g} must divide T={T}")
     pp = prune_positions_batched(
-        Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, m_cap)
+        Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, m_cap, plain)
     cands, fp = _positions_selects(
         Rb, pp, exact, W_fine, total_features, vpos_flat,
         [(vpos_flat, threshold)], threshold, T, Kc, g, m2_cap, top_k, Wc, plain)
@@ -1300,7 +1306,7 @@ def match_coarse_pruned_with_fallback(
     scores of each frame's m_cap survivors, or of every position when any
     frame overflows m_cap.  Returns (CoarseMatches (B, top_k), PrunePlan)."""
     pp = prune_positions_batched(
-        Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, m_cap)
+        Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, m_cap, plain)
     cands, _ = _positions_selects(
         Rb, pp, exact, None, total_features, vpos_flat,
         [(vpos_flat, threshold)], threshold, T, Kc, None, None, top_k, Wc, plain)
@@ -1435,7 +1441,7 @@ def match_pooled_multiclass(
     with tracing.span("lpe.pool"):
         with tracing.span("lpe.pool.coarse"):
             margins = position_margins_batched(
-                Rb, W_cell, total_features, vpos_flat, thr_min, T, Kc)
+                Rb, W_cell, total_features, vpos_flat, thr_min, T, Kc, plain)
             pp = pool_plan_from_margins(margins, pool1)
             # The reference computes this t_int from a Python float (a static
             # argument there): (thr - 1e-3) * 0.04 in double, rounded to f32 once.
@@ -1487,7 +1493,7 @@ def match_coarse_pruned_multiclass(
         raise ValueError(f"g={g} must divide T={T} (pass g=None to disable "
                          "the fine stage)")
     pp = prune_positions_batched(
-        Rb, W_cell, total_features, vpos_flat, thr_min, T, Kc, m_cap)
+        Rb, W_cell, total_features, vpos_flat, thr_min, T, Kc, m_cap, plain)
     fine = g is not None and W_fine is not None
     if classes is None:
         classes = _class_columns(vpos_flat, class_slices, thresholds)

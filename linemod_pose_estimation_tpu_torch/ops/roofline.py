@@ -7,10 +7,11 @@ output written once), the operations it does, and the larger of the two
 times at the card's published peaks, with which of the two sets it.
 
 Peaks (NVIDIA's H100 SXM data sheet, dense, at the full 700 W): 3.35 TB/s
-of HBM3 and 67 TFLOP/s of f32 outside the tensor cores.  Every operation
-counted here is an elementwise f32 or int32 operation (add, multiply,
-compare, select, shift, logic, one division as one), and all of them are
-held to the f32 rate, as the card issues int32 at no more than that.
+of HBM3, 67 TFLOP/s of f32 outside the tensor cores and 1,979 TOPS of
+int8 on them.  Every operation counted here is an elementwise f32 or
+int32 operation (add, multiply, compare, select, shift, logic, one
+division as one), held to the f32 rate, as the card issues int32 at no
+more than that; except BM's int8 products, held to the tensor cores'.
 
 The per-element operation counts are those of the straightforward
 algorithm each kernel implements, written out below, not of any one
@@ -24,6 +25,7 @@ from typing import NamedTuple
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT8_TC_OPS_PER_S = 1979e12
 
 
 class Bound(NamedTuple):
@@ -33,9 +35,9 @@ class Bound(NamedTuple):
     by: str  # "bytes" or "operations"
 
 
-def bound(nbytes: int, ops: int) -> Bound:
+def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> Bound:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     if t_bytes >= t_ops:
         return Bound(int(nbytes), int(ops), t_bytes, "bytes")
     return Bound(int(nbytes), int(ops), t_ops, "operations")
@@ -154,3 +156,16 @@ def select_topk(B: int, P: int, N: int, k: int) -> Bound:
     n = P * N
     return bound(B * n * 4 + n + N * 4 + B * k * (4 + 8),
                  B * n * SELECT_TOPK_OPS_PER_ELEMENT)
+
+
+def bound_margins(M: int, N: int, K: int, P: int) -> Bound:
+    """BM over M live rows (a row tile with none is skipped) of K int8
+    against N templates: 2 M ceil8(N) K int8 operations on the tensor
+    cores (the weight's zero rows to a multiple of 8 included, as the GEMM
+    it replaced computed them; the epilogue's per-element subtract, select
+    and max are ~3 f32-rate operations an element, under 10% of the int8
+    products' time at K >= 1152, and left out); A (M, K) and the weight
+    (ceil8(N), K) read once, the (P, N) validity and (N,) int32 thresholds,
+    and the (M,) int32 margins written."""
+    n8 = -(-N // 8) * 8
+    return bound(M * K + n8 * K + P * N + N * 4 + M * 4, 2 * M * n8 * K, INT8_TC_OPS_PER_S)

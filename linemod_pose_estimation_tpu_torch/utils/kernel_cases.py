@@ -1,9 +1,10 @@
 """Odd operand sets that hold kernels K3 (the walk), K4 (the z-buffer), K5
-(the window scores) and DN (the DepthNormal quantizer) to their plain
-versions off the main path's shapes.  chip_smoke.py and
-tests/test_torch_cuda.py run the same sets (the CPU tests hold DN's
-plain version to the reference on its sets).  Each is made from a fixed
-numpy seed and placed on the device asked for.
+(the window scores), DN (the DepthNormal quantizer) and BM (the bound
+margins) to their plain versions off the main path's shapes.  chip_smoke.py
+and tests/test_torch_cuda.py run the same sets (the CPU tests hold DN's
+plain version to the reference on its sets, and BM's plain route to the
+chain it replaced on its own).  Each is made from a fixed seed and placed
+on the device asked for.
 """
 
 from __future__ import annotations
@@ -261,3 +262,71 @@ def depth_normal_cases(device) -> dict[str, tuple[torch.Tensor, float, float]]:
     out["int32_input"] = (_surface(rng, 2, H, W, 700.0).astype(np.int32), 2000.0, 50.0)
     assert tuple(out) == DEPTH_NORMAL_CASES
     return {k: (torch.as_tensor(v, device=device), dt, df) for k, (v, dt, df) in out.items()}
+
+
+# BM's operand sets: rows (M, or B frames of every position with pos
+# "none"), positions P, templates n, contraction K, the rows' positions
+# ("none": m % P; "random"), the live rows ("none", "prefix": the first
+# `live`, as a pool fills, "holes": a prefix with dead rows inside), the
+# sentinel, and "full" int8 operands in place of responses and counts.
+_NEG = -(2**30)
+_I32_MIN = -(2**31)
+BOUND_MARGIN_CASES = {
+    # the four call shapes, cut to a CPU's size, and the ragged edges
+    "group_tier": dict(M=2 * 1200, P=1200, n=664, K=2304, pos="none", sentinel=_NEG),
+    "cell_tier_dead_slots": dict(M=300, P=1200, n=1000, K=2304, keep="holes", live=150),
+    "fine_tier": dict(M=70, P=1200, n=600, K=9216, keep="prefix", live=50),
+    "every_position_int32_min": dict(M=2 * 300, P=300, n=523, K=1152, pos="none",
+                                     sentinel=_I32_MIN),
+    "short_rows_odd_k": dict(M=9, P=5, n=37, K=24, keep="holes", live=9),
+    "full_int8_operands": dict(M=200, P=50, n=301, K=160, full=True),
+    "one_template": dict(M=130, P=10, n=1, K=128, keep="prefix", live=129),
+}
+# The batch cells' shapes (a card's size): planted's and fullbin's group,
+# cell and fine tiers (B=32 x 1200 positions, 10,624 templates, RGB-D K),
+# twoobj's every-position bound (5304 templates), ensenso's cell and fine
+# tiers (one modality's K).
+BOUND_MARGIN_SHAPES = {
+    "planted_group": dict(M=32 * 1200, P=1200, n=664, K=2304, pos="none", sentinel=_NEG),
+    "planted_cell": dict(M=32 * 1200, P=1200, n=10624, K=2304, keep="prefix", live=30000),
+    "planted_fine": dict(M=56 * 32, P=1200, n=10624, K=9216, keep="prefix", live=1200),
+    "twoobj_positions": dict(M=32 * 1200, P=1200, n=5304, K=2304, pos="none",
+                             sentinel=_I32_MIN),
+    "ensenso_cell": dict(M=32 * 1200, P=1200, n=10624, K=1152, keep="prefix", live=20000),
+    "ensenso_fine": dict(M=64 * 32, P=1200, n=10624, K=4608, keep="prefix", live=1500),
+}
+
+
+def bound_margin_case(name: str, device) -> tuple:
+    """(A (M, K) int8, nk (ceil8(n), K) int8 K-major with zero rows past
+    n, n, t (n,) int32, vpos (P, n) bool, pos (M,) int64 or None, keep
+    (M,) bool or None, sentinel) for kernel BM's case or shape `name`:
+    responses in [0, 4] against sparse counts whose bounds straddle the
+    thresholds, 80% of (position, template) pairs valid, or the full int8
+    range against thresholds past +-2^30."""
+    c = {**dict(pos="random", keep="none", sentinel=_NEG, full=False),
+         **(BOUND_MARGIN_CASES.get(name) or BOUND_MARGIN_SHAPES[name])}
+    g = torch.Generator().manual_seed(sum(map(ord, name)))
+    M, P, n, K = c["M"], c["P"], c["n"], c["K"]
+    n8 = -(-n // 8) * 8
+    if c["full"]:
+        A = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8)
+        W = torch.randint(-128, 128, (n, K), generator=g, dtype=torch.int8)
+        t = torch.randint(-(2**30) - 2**27, 2**30 + 2**27, (n,), generator=g, dtype=torch.int32)
+    else:
+        A = torch.randint(0, 5, (M, K), generator=g, dtype=torch.int8)
+        hit = torch.rand((n, K), generator=g) < 63.0 / K
+        W = (hit * torch.randint(1, 4, (n, K), generator=g)).to(torch.int8)
+        t = torch.randint(60, 200, (n,), generator=g, dtype=torch.int32)
+    nk = torch.zeros((n8, K), dtype=torch.int8)
+    nk[:n] = W
+    vpos = torch.rand((P, n), generator=g) < 0.8
+    vpos[0] = True  # a position where every template is valid
+    pos = None if c["pos"] == "none" else torch.randint(0, P, (M,), generator=g)
+    keep = None
+    if c["keep"] != "none":
+        keep = torch.arange(M) < c["live"]
+        if c["keep"] == "holes":
+            keep[torch.randint(0, c["live"], (max(1, c["live"] // 10),), generator=g)] = False
+    on = lambda x: None if x is None else x.to(device)
+    return on(A), on(nk), n, on(t), on(vpos), on(pos), on(keep), c["sentinel"]

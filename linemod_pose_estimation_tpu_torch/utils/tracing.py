@@ -69,7 +69,7 @@ counters: dict[str, int] = {}
 
 # The hand-written kernels, each counted as `launch.<kernel>` by its wrapper.
 KERNELS = ("quantize_cg", "spread_response", "walk_scores", "raster_zbuffer", "refine_scores",
-           "depth_normal", "exact_scores", "select_topk")
+           "depth_normal", "exact_scores", "select_topk", "bound_margins")
 
 
 class _Off:

@@ -1,5 +1,5 @@
 """The CUDA kernels K1, K2 (also at B=1, the port of K2b), K3, K4, K5, DN,
-XS, TK and the kernel paths of BatchedMatcher (pooled, positions, two_axis, the
+XS, TK, BM and the kernel paths of BatchedMatcher (pooled, positions, two_axis, the
 RGB-only bank), the K5 refiner, MultiClassBatchedMatcher (pooled and its
 default mode) and DetectionPipeline against their plain
 PyTorch versions, on a card; then the cascade's non-default options (the
@@ -339,8 +339,9 @@ def _exact_route_kw(B: int, route: str) -> dict:
 def test_pooled_matcher_scores_through_xs_alone(cuda, monkeypatch, route):
     """The pooled matcher on the card launches XS once for its exact tier
     and once for its exhaustive fallback, holds no dense one-hot operand,
-    never runs torch._int_mm at the exact scorer's contraction, and
-    matches the CPU matcher (the int8 GEMM) on every slot."""
+    never runs torch._int_mm (its bounds go through BM, its exact scores
+    through XS), and matches the CPU matcher (the int8 GEMM) on every
+    slot."""
     td = Detector.read(BANK)
     cid = td.class_ids[0]
     B = 2
@@ -357,7 +358,8 @@ def test_pooled_matcher_scores_through_xs_alone(cuda, monkeypatch, route):
     tracing.reset()
     got = m.match_batch(rgbs, deps)
     assert tracing.launches()["exact_scores"] == launches
-    assert seen and k_exact not in seen
+    assert tracing.launches()["bound_margins"] > 0
+    assert k_exact not in seen and not seen
     assert bool(m.last_pool.fallback) == fallback
     want = BatchedMatcher(td, cid, 70.0, B, device="cpu", **kw).match_batch(rgbs, deps)
     for a, b in zip(got, want):
@@ -366,24 +368,86 @@ def test_pooled_matcher_scores_through_xs_alone(cuda, monkeypatch, route):
 
 @pytest.mark.requires_cuda
 def test_plain_pooled_matcher_launches_no_kernel(cuda):
-    """`plain=True` on the card: the pooled matcher's exact tier and its
-    exhaustive fallback take XS's plain twin, so no route of the batch
-    launches a hand-written kernel, and each equals the kernel path on
-    every slot."""
+    """`plain=True` on the card: the pooled matcher's bound tiers take BM's
+    plain twin, its exact tier and its exhaustive fallback XS's, so no
+    route of the batch launches a hand-written kernel (BM included, which
+    the kernel path launches), and each equals the kernel path on every
+    slot."""
     td = Detector.read(BANK)
     cid = td.class_ids[0]
     B = 2
     rgbs, deps = S.golden_crops()
     for route, (_, _, fallback) in EXACT_ROUTES.items():
         kw = _exact_route_kw(B, route)
+        tracing.reset()
         want = BatchedMatcher(td, cid, 70.0, B, device=cuda, **kw).match_batch(rgbs, deps)
+        assert tracing.launches()["bound_margins"] > 0, route
         m = BatchedMatcher(td, cid, 70.0, B, device=cuda, plain=True, **kw)
         tracing.reset()
         got = m.match_batch(rgbs, deps)
+        assert tracing.launches()["bound_margins"] == 0, route
         assert not any(tracing.launches().values()), (route, tracing.launches())
         assert bool(m.last_pool.fallback) == fallback, route
         for a, b in zip(got, want):
             assert torch.equal(a, b), route
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", [*KC.BOUND_MARGIN_CASES, *KC.BOUND_MARGIN_SHAPES])
+def test_bound_margins_kernel_equals_plain(cuda, case):
+    """BM against its plain twin (torch._int_mm and the epilogue it
+    replaced), bitwise, on the odd operand sets (n % 8 != 0, M <= 16, K %
+    16 != 0, full-range int8, one template, dead pool slots) and at the
+    batch cells' shapes: planted's and fullbin's group, cell and fine
+    tiers, twoobj's every-position bound, ensenso's cell and fine tiers."""
+    args = KC.bound_margin_case(case, cuda)
+    tracing.reset()
+    got = CK.bound_margins(*args)
+    assert tracing.launches()["bound_margins"] == 1
+    want = CK.bound_margins_plain(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+# route -> BM launches a batch: the group, cell and fine tiers; the group
+# and cell tiers alone when the coarse pool overflows; the merged
+# two-object matcher's every-position bound and fine tier
+BOUND_ROUTES = {"pooled": 3, "coarse_overflow": 2, "merged": 2}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("route", list(BOUND_ROUTES))
+def test_pooled_matcher_launches_bound_margins(cuda, route):
+    """The pooled matcher's bounds on the card are BM's launches, one a
+    bound tier (3 a batch without overflow, 2 on a coarse overflow, 2 in
+    the merged two-object matcher, which has no group tier), and every
+    Matches slot equals the plain matcher's."""
+    td = Detector.read(BANK)
+    cid = td.class_ids[0]
+    B = 2
+    rgbs, deps = S.golden_crops()
+    if route == "merged":
+        bank = td.bank(cid)
+        td.attach_bank(TemplateBank("second", bank.params, bank.templates))
+        kw = dict(top_k=64, prune_mode="pooled", pool_coarse=300 * B, pool_fine=300 * B,
+                  sel_row_cap=300)
+        make = lambda plain: MultiClassBatchedMatcher(td, [cid, "second"], [70.0, 72.0], B,
+                                                      device=cuda, plain=plain, **kw)
+    else:
+        kw = _exact_route_kw(B, "exact_tier" if route == "pooled" else route)
+        make = lambda plain: BatchedMatcher(td, cid, 70.0, B, device=cuda, plain=plain, **kw)
+    m = make(False)
+    tracing.reset()
+    got = m.match_batch(rgbs, deps)
+    assert tracing.launches()["bound_margins"] == BOUND_ROUTES[route], tracing.launches()
+    assert bool(m.last_pool.coarse_overflow) == (route == "coarse_overflow")
+    want = make(True).match_batch(rgbs, deps)
+    if route == "merged":
+        got, want = [got[c] for c in (cid, "second")], [want[c] for c in (cid, "second")]
+    else:
+        got, want = [got], [want]
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
 
 
 def _tiled_matcher(cuda, B: int, **kw) -> BatchedMatcher:

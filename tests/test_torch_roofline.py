@@ -59,3 +59,14 @@ def test_select_topk_counts_raw_once_whatever_the_passes():
     assert tk.ops == 32 * n * RL.SELECT_TOPK_OPS_PER_ELEMENT
     assert tk.by == "bytes" and tk.ms == pytest.approx(tk.bytes / 3.35e9)
     assert RL.select_topk(1, 1200, 2652, 512).bytes == 1200 * 2652 * 5 + 2652 * 4 + 512 * 12
+
+
+def test_bound_margins_counts_int8_products_on_the_tensor_cores():
+    # BM at the cell tier's shape: 38,400 rows of 2304 int8 against 10,624
+    # templates; products over ceil8(N), held to the int8 tensor-core peak
+    bm = RL.bound_margins(38400, 10624, 2304, 1200)
+    assert bm.ops == 2 * 38400 * 10624 * 2304 and bm.by == "operations"
+    assert bm.ms == pytest.approx(bm.ops / 1979e9)
+    assert bm.bytes == 38400 * 2304 + 10624 * 2304 + 1200 * 10624 + 10624 * 4 + 38400 * 4
+    # the weight's zero rows to a multiple of 8 are multiplied too
+    assert RL.bound_margins(9, 37, 32, 5).ops == 2 * 9 * 40 * 32
