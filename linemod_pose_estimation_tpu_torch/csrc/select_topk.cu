@@ -5,11 +5,13 @@
 // Replaces no Pallas kernel: the reference selects with jax.lax.top_k
 // (linemod_pose_estimation_tpu/ops/match.py::select_candidates_flat).
 //
-// For each frame b of raw (B, P, N) int32 it returns the k largest of
-// sim = vpos[p, n] ? (float)raw[b, p, n] * scale[n] : -1.0f over the flat
-// index e = p * N + n, ordered by sim's order key, largest first, and on
-// equal keys by e, lowest first: the plain twin's order, the -1.0 filler
-// slots included.
+// For each frame b of raw (B, P, ld) int32 it returns the k largest of
+// sim = vpos[p, n] ? (float)raw[b, p, col0 + n] * scale[n] : -1.0f over
+// the window's flat index e = p * N + n (N <= ld columns from col0: one
+// class's columns of a merged template axis, read in place; the whole row
+// where col0 = 0 and N = ld), ordered by sim's order key, largest first,
+// and on equal keys by e, lowest first: the plain twin's order, the -1.0
+// filler slots included.
 //
 // What bounds it is the bytes of raw, 4 an element: 1.63 GB at B = 32,
 // P = 1200, N = 10,624, 0.49 ms at 3.35 TB/s.  No sim, no key and no
@@ -70,7 +72,7 @@ __device__ __forceinline__ int fdiv(int n, FastDiv f) {
 }
 
 struct Args {
-  const int32_t* raw;     // (B, n) with n = P * N
+  const int32_t* raw;     // (B, P, ld): the window is columns [col0, col0 + N)
   const float* scale;     // (N,)
   const uint8_t* vpos;    // (n,) bools
   uint32_t* hist;         // (B, BINS) of the running pass
@@ -82,7 +84,8 @@ struct Args {
   int32_t* eq_cnt;        // (B, G)
   float* vals;            // (B, k)
   int64_t* idx;           // (B, k)
-  int n, N, k, G, steps;
+  int n, N, ld, col0, k, G, steps;  // n = P * N, the window's elements a frame
+  size_t frame;                     // P * ld, raw's elements a frame
   FastDiv divN;
 };
 
@@ -92,6 +95,11 @@ __device__ __forceinline__ uint32_t order_key(int32_t r, float s, uint32_t v) {
   return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
 }
 
+// The offset in a frame of raw of the window's element e.
+__device__ __forceinline__ int raw_at(const Args& a, int e, int p) {
+  return p * a.ld + a.col0 + (e - p * a.N);
+}
+
 // The element index of slot j (row j / GROUP, element j % GROUP) of step s.
 __device__ __forceinline__ int elem(int s, int j) {
   return s * STEP + (j / GROUP) * ROW + GROUP * threadIdx.x + j % GROUP;
@@ -99,8 +107,9 @@ __device__ __forceinline__ int elem(int s, int j) {
 
 // The keys of this thread's ROWS groups of GROUP consecutive elements of
 // step s; bit j of `live` is set where slot j lies inside the frame.  VEC:
-// N % 4 == 0 and 16-byte aligned operands, so a group lies in one row p
-// and loads as one int4, one word of vpos and one float4 of scale.
+// N, ld and col0 multiples of 4 and 16-byte aligned operands, so a group
+// lies in one row p and loads as one int4, one word of vpos and one float4
+// of scale.
 template <bool VEC>
 __device__ __forceinline__ void load_step(const Args& a, const int32_t* fr, int s,
                                           uint32_t (&key)[ROWS * GROUP], uint32_t& live) {
@@ -110,9 +119,10 @@ __device__ __forceinline__ void load_step(const Args& a, const int32_t* fr, int 
     const int e = elem(s, r * GROUP);
     if (VEC) {
       if (e < a.n) {
-        const int4 v = __ldcs(reinterpret_cast<const int4*>(fr + e));
+        const int p = fdiv(e, a.divN);
+        const int c = e - p * a.N;
+        const int4 v = __ldcs(reinterpret_cast<const int4*>(fr + raw_at(a, e, p)));
         const uint32_t m = __ldg(reinterpret_cast<const uint32_t*>(a.vpos + e));
-        const int c = e - fdiv(e, a.divN) * a.N;
         const float4 sc = __ldg(reinterpret_cast<const float4*>(a.scale + c));
         key[r * GROUP + 0] = order_key(v.x, sc.x, m & 0xffu);
         key[r * GROUP + 1] = order_key(v.y, sc.y, (m >> 8) & 0xffu);
@@ -129,8 +139,9 @@ __device__ __forceinline__ void load_step(const Args& a, const int32_t* fr, int 
         const int eq = e + q;
         key[r * GROUP + q] = 0;
         if (eq < a.n) {
-          const int c = eq - fdiv(eq, a.divN) * a.N;
-          key[r * GROUP + q] = order_key(__ldcs(fr + eq), __ldg(a.scale + c), a.vpos[eq]);
+          const int p = fdiv(eq, a.divN);
+          key[r * GROUP + q] = order_key(__ldcs(fr + raw_at(a, eq, p)),
+                                         __ldg(a.scale + (eq - p * a.N)), a.vpos[eq]);
           live |= 1u << (r * GROUP + q);
         }
       }
@@ -182,7 +193,7 @@ __global__ void __launch_bounds__(TH, 1) select_hist_kernel(Args a) {
   for (int i = threadIdx.x; i < BINS / 2; i += TH) sh[i] = 0;
   __syncthreads();
   const uint32_t hi = PASS == 2 ? static_cast<uint32_t>(a.state[4 * b]) : 0u;
-  const int32_t* fr = a.raw + static_cast<size_t>(b) * a.n;
+  const int32_t* fr = a.raw + b * a.frame;
   uint32_t* gh = a.hist + static_cast<size_t>(b) * BINS;
   bool counted = false;
   int since = 0;
@@ -260,7 +271,7 @@ __global__ void __launch_bounds__(TH) select_compact_kernel(Args a) {
   block_range(a, g, s0, s1);
   const uint32_t kth = static_cast<uint32_t>(a.state[4 * b + 2]);
   const int need = a.state[4 * b + 3];
-  const int32_t* fr = a.raw + static_cast<size_t>(b) * a.n;
+  const int32_t* fr = a.raw + b * a.frame;
   int32_t* eq = a.eq_idx + (static_cast<size_t>(b) * a.G + g) * a.k;
   int running = 0;  // block-uniform: elements equal to u* met so far
   for (int s = s0; s < s1; ++s) {
@@ -383,9 +394,10 @@ bool aligned(const void* p, uintptr_t bytes) {
 
 }  // namespace
 
-// The top k (k <= 512) of each frame of raw (B, P, N) int32 by the key of
-// sim = vpos[p, n] ? raw * scale[n] : -1.0f, lower flat index first on
-// ties: vals (B, k) f32 and idx (B, k) int64.  Scratch, all device memory
+// The top k (k <= 512) of each frame of the window raw[:, :, col0:col0 + N]
+// of raw (B, P, ld) int32 by the key of sim = vpos[p, n] ? raw * scale[n]
+// : -1.0f, lower flat index p * N + n first on ties: vals (B, k) f32 and
+// idx (B, k) int64.  vpos (P, N) and scale (N,) are the window's.  Scratch, all device memory
 // of the caller: hist (2, B, 65536) int32, zero; state (B, 4) int32;
 // cand_key, cand_idx (B, 512) int32; cand_cnt (B,) int32, zero; eq_idx
 // (B, G, k) int32; eq_cnt (B, G) int32.  G blocks take each frame, each a
@@ -394,13 +406,15 @@ bool aligned(const void* p, uintptr_t bytes) {
 extern "C" int lpe_select_topk(const void* raw, const void* scale, const void* vpos, void* hist,
                                void* state, void* cand_key, void* cand_idx, void* cand_cnt,
                                void* eq_idx, void* eq_cnt, void* vals, void* idx, int B, int P,
-                               int N, int k, int G, int device, void* stream) {
+                               int N, int ld, int col0, int k, int G, int device,
+                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0) return 0;
   const long long n = static_cast<long long>(P) * N;
   const long long steps = (n + STEP - 1) / STEP;
-  if (n < 1 || n >= (1ll << 30) || k < 1 || k > KMAX || k > n || G < 1 || G > KMAX ||
+  if (n < 1 || n >= (1ll << 30) || static_cast<long long>(P) * ld >= (1ll << 31) ||
+      col0 < 0 || col0 + N > ld || k < 1 || k > KMAX || k > n || G < 1 || G > KMAX ||
       G > steps || B > 65535 || HIST_SMEM > max_smem(device))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
@@ -416,9 +430,12 @@ extern "C" int lpe_select_topk(const void* raw, const void* scale, const void* v
   a.eq_cnt = static_cast<int32_t*>(eq_cnt);
   a.vals = static_cast<float*>(vals);
   a.idx = static_cast<int64_t*>(idx);
-  a.n = static_cast<int>(n), a.N = N, a.k = k, a.G = G, a.steps = static_cast<int>(steps);
+  a.n = static_cast<int>(n), a.N = N, a.ld = ld, a.col0 = col0, a.k = k, a.G = G;
+  a.steps = static_cast<int>(steps);
+  a.frame = static_cast<size_t>(P) * ld;
   a.divN = make_div(static_cast<uint32_t>(N));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = N % 4 == 0 && aligned(raw, 16) && aligned(scale, 16) && aligned(vpos, 4);
+  const bool vec = N % 4 == 0 && ld % 4 == 0 && col0 % 4 == 0 && aligned(raw, 16) &&
+                   aligned(scale, 16) && aligned(vpos, 4);
   return static_cast<int>(vec ? run<true>(a, B, st) : run<false>(a, B, st));
 }

@@ -297,9 +297,9 @@ class MultiClassBatchedMatcher:
     classes' template axes are concatenated (ops.match.concat_level_
     features), so one preprocess, one pruned pass at min(thresholds), one
     call of the exact scorer and one walk over the merged, re-sorted
-    candidates serve every class; only the select runs per class, at the
-    class's threshold - 5, and each class's walked matches are re-gated at
-    its own threshold.
+    candidates serve every class; only the select runs per class, over the
+    class's own columns at its threshold - 5, and each class's walked
+    matches are split out in one top-k and re-gated at its own threshold.
 
     `prune_mode="positions"` (the default) is BatchedMatcher's per-frame
     cap mode over the merged bank (ops.match.match_coarse_pruned_
@@ -360,14 +360,16 @@ class MultiClassBatchedMatcher:
         self.slices = tuple(zip(bases, ends))
         self.weights = M.build_bank_weights(self.feats1, C, self.T1, self.Kc1,
                                             self.fine_g)
-        # The classes' report gates, on the device once: a host number
-        # copied per batch would wait for the stream each time.
+        # The classes' report gates and column ranges, on the device once: a
+        # host number copied per batch would wait for the stream each time.
         self._gates = torch.tensor(self.thresholds, dtype=torch.float32, device=self.device)
+        self._bounds = M.class_bounds(self.slices, self.device)
         self._columns: dict[tuple[int, int], tuple] = {}
 
     def _class_columns(self, Hc: int, Wc: int) -> tuple:
-        """(vpos (P, N), [(vpos_c, select threshold_c)] per class) of an
-        Hc x Wc level-1 grid, built at its first batch."""
+        """(vpos (P, N), [ClassColumns] per class: its columns, their
+        validity (P, hi - lo), its select threshold) of an Hc x Wc level-1
+        grid, built at its first batch."""
         if (Hc, Wc) not in self._columns:
             vpos = M.position_validity_flat(self.feats1.size, self.T1, Hc, Wc)
             sel_thrs = [t - 5.0 for t in self.thresholds]
@@ -385,7 +387,7 @@ class MultiClassBatchedMatcher:
         Hc, Wc = R1.shape[2] // T1, R1.shape[3] // T1
         vpos, classes = self._class_columns(Hc, Wc)
         w = self.weights
-        sel_thrs = [thr for _, thr in classes]
+        sel_thrs = [c.threshold for c in classes]
         tracing.count("multiclass.batch")
         tracing.count("multiclass.classes", len(classes))
         if self.prune_mode == "pooled":
@@ -414,9 +416,10 @@ class MultiClassBatchedMatcher:
             fine_T=self.T0, n_valid=n_valid, plain=self.plain,
         )
         with tracing.span("lpe.split"):
-            split = M.split_matches_by_class(m, self.slices, self.top_k)
-            return {cid: mc._replace(valid=mc.valid & (mc.similarity >= self._gates[i]))
-                    for i, (cid, mc) in enumerate(zip(self.class_ids, split))}
+            st = M.split_matches_stacked(m, self._bounds, self.top_k)
+            st = st._replace(valid=st.valid & (st.similarity >= self._gates[:, None]))
+            return {cid: M.Matches(*(a[:, i] for a in st))
+                    for i, cid in enumerate(self.class_ids)}
 
     def match_batch(self, rgbs, depths_mm=None) -> dict[str, M.Matches]:
         """(B, H, W, 3) uint8 [+ (B, H, W) mm] -> {class_id: Matches} with

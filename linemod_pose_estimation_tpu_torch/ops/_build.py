@@ -62,8 +62,8 @@ _SIGNATURES = {
     #  B, M, L, Hc, Wc, Kc, N, F, Hp, XS, BH, LS, device, stream)
     "lpe_exact_scores": (_P,) * 5 + (_I,) * 13 + (_P,),
     # (raw, scale, vpos, hist, state, cand_key, cand_idx, cand_cnt, eq_idx,
-    #  eq_cnt, vals, idx, B, P, N, k, G, device, stream)
-    "lpe_select_topk": (_P,) * 12 + (_I,) * 6 + (_P,),
+    #  eq_cnt, vals, idx, B, P, N, ld, col0, k, G, device, stream)
+    "lpe_select_topk": (_P,) * 12 + (_I,) * 8 + (_P,),
     # (A, W, t, vpos, pos or NULL, keep or NULL, out, M, n, w_rows, K, P, vstride,
     #  sentinel, device, stream)
     "lpe_bound_margins": (_P,) * 7 + (_I,) * 8 + (_P,),

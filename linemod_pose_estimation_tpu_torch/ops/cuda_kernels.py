@@ -478,33 +478,44 @@ def topk_first_index(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Te
     return torch.gather(vals, -1, idx), idx
 
 
-def select_topk_plain(raw: torch.Tensor, scale: torch.Tensor, vpos: torch.Tensor, k: int
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The k largest of sim = where(vpos, raw * scale, -1.0) in each frame
-    of raw (B, P, N) int32, over the flat index p * N + n, the lower index
-    first on ties: (vals (B, k) f32, idx (B, k) int64).  scale (N,) f32;
-    vpos (P, N) bool."""
+def select_topk_plain(raw: torch.Tensor, scale: torch.Tensor, vpos: torch.Tensor, k: int,
+                      lo: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of sim = where(vpos, raw[:, :, lo:lo + N] * scale, -1.0)
+    in each frame of raw (B, P, >= lo + N) int32, over the window's flat
+    index p * N + n, the lower index first on ties: (vals (B, k) f32, idx
+    (B, k) int64).  scale (N,) f32 and vpos (P, N) bool are the window's;
+    the window is the whole row by default."""
+    N = scale.shape[0]
     out = []
     for b in range(raw.shape[0]):  # one frame at a time bounds the (P*N) key memory
-        sim = torch.where(vpos, raw[b].to(torch.float32) * scale[None, :], -1.0).reshape(-1)
+        win = raw[b, :, lo:lo + N].to(torch.float32)
+        sim = torch.where(vpos, win * scale[None, :], -1.0).reshape(-1)
         out.append(topk_first_index(sim, k))
     vals, idx = zip(*out)
     return torch.stack(vals), torch.stack(idx)
 
 
-def select_topk(raw: torch.Tensor, scale: torch.Tensor, vpos: torch.Tensor, k: int
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+def select_topk(raw: torch.Tensor, scale: torch.Tensor, vpos: torch.Tensor, k: int,
+                lo: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """TK: select_topk_plain's (vals, idx), bit for bit, for all B frames in
     one call and with no host sync: an exact radix select on sim's order
-    key over raw read three times, the keys made as raw is read (none is
-    written), the ties kept by index order (csrc/select_topk.cu).  What
-    bounds it is raw's bytes.  Operands: raw (B, P, N) int32 with P * N <
-    2^30; scale (N,) f32; vpos (P, N) bool; 1 <= k <= min(512, P * N)."""
+    key over the window read three times in place (no copy of its
+    columns), the keys made as it is read (none is written), the ties kept
+    by index order (csrc/select_topk.cu).  What bounds it is the window's
+    bytes.  Operands: raw (B, P, ld) int32 with P * ld < 2^31; the window
+    columns [lo, lo + N) with N = scale's length and P * N < 2^30; scale
+    (N,) f32; vpos (P, N) bool; 1 <= k <= min(512, P * N)."""
     if raw.device.type == "cpu":
-        return select_topk_plain(raw, scale, vpos, k)
+        return select_topk_plain(raw, scale, vpos, k, lo)
     if raw.dim() != 3:
         raise ValueError(f"raw: expected (B, P, N), got {tuple(raw.shape)}")
-    B, P, N = raw.shape
+    B, P, ld = raw.shape
+    N = scale.shape[0]
+    if not (0 <= lo and lo + N <= ld):
+        raise ValueError(f"the window [{lo}, {lo} + {N}) does not lie in raw's {ld} columns: "
+                         "scale's shape (N,) gives its width")
+    if P * ld >= 1 << 31:
+        raise ValueError(f"P * ld = {P * ld}: TK indexes a frame of raw in int32")
     n = P * N
     if not 1 <= k <= min(SELECT_MAX_K, n):
         raise ValueError(f"k={k}: TK takes 1 to min({SELECT_MAX_K}, P * N = {n})")
@@ -534,7 +545,7 @@ def select_topk(raw: torch.Tensor, scale: torch.Tensor, vpos: torch.Tensor, k: i
     err = lib.lpe_select_topk(
         raw.data_ptr(), scale.data_ptr(), vpos.data_ptr(), hist.data_ptr(), state.data_ptr(),
         cand[0].data_ptr(), cand[1].data_ptr(), cand_cnt.data_ptr(), eq_idx.data_ptr(),
-        eq_cnt.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, P, N, k, G,
+        eq_cnt.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, P, N, ld, lo, k, G,
         *_build.device_and_stream(raw))
     _build.check(err, "select_topk")
     tracing.count("launch.select_topk")

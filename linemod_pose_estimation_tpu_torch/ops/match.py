@@ -59,6 +59,12 @@ Every output equals the reference's bit for bit.  What changed on the way:
   selecting on a unique 64-bit key (value bits, then inverted index); on
   a card the exhaustive select (select_candidates_flat) is kernel TK, an
   exact radix select over the batch in one call.
+- The reference selects a class of a merged bank over every column, the
+  other classes' masked.  Here each class's select reads only its own
+  columns (ClassColumns; TK reads them in place) and _window_fillers puts
+  back the whole rows' sub-threshold filler slots, so the result is the
+  same bit for bit while the selects' work grows with the classes, not
+  with their square.
 """
 
 from __future__ import annotations
@@ -458,6 +464,57 @@ def _coarse_matches(vals, t, pos, Wc: int, threshold: float) -> CoarseMatches:
     )
 
 
+class ClassColumns(NamedTuple):
+    """One class's share of a (merged) template axis: its columns [lo, hi),
+    the level-1 validity of those columns alone (P, hi - lo) bool, and its
+    select threshold.  A single-class bank is one ClassColumns over every
+    column."""
+
+    lo: int
+    hi: int
+    vpos: torch.Tensor
+    threshold: float
+
+
+def _window_fillers(vals, idx, live, lo: int, N: int, k: int):
+    """What a select over whole rows of N columns, every column outside the
+    window [lo, lo + w) dead, gives, from the select over the window alone:
+    (vals (B, k), idx (B, k) int64, the whole rows' flat index r * N + n).
+
+    vals, idx (B, kw): the window's select, largest first, its index
+    r * w + j; live (B or 1, R, w): the window's scored entries (the rest
+    read -1.0).  Scores are counts, so a live entry reads >= 0 and ranks
+    above every dead one; the live entries rank alike in both selects (the
+    window's index order is the rows' restricted to it).  Where fewer than
+    k are live, the whole rows' select fills its slots with the lowest
+    dead indices, which may lie outside the window: they lie among the
+    first 2k indices, which hold at least k dead ones.  Over whole rows
+    (w = N) it is the identity."""
+    Bl, R, w = live.shape
+    if w == N:
+        return vals, idx
+    B, kw = vals.shape
+    dev = vals.device
+    rows = torch.div(idx, w, rounding_mode="floor") * N + lo + idx % w
+    n_live = (vals >= 0).sum(dim=1, keepdim=True)
+    L = min(R * N, 2 * k)
+    e = torch.arange(L, device=dev)
+    j = e % N - lo
+    inside = (j >= 0) & (j < w)
+    at = torch.div(e, N, rounding_mode="floor") * w + j.clamp(0, w - 1)
+    dead = ~(inside & live.reshape(Bl, R * w)[:, at])  # (Bl, L)
+    d = dead.to(torch.int64)
+    rank = torch.cumsum(d, 1) - d
+    tgt = torch.where(dead & (rank < k), rank, k)  # the dead in index order; the rest past k
+    fill = torch.zeros((Bl, k + 1), dtype=torch.int64, device=dev)
+    fill = fill.scatter_(1, tgt, e.expand(Bl, L))[:, :k].expand(B, k)
+    slot = torch.arange(k, device=dev)
+    filler = torch.gather(fill, 1, (slot - n_live).clamp(min=0))
+    keep = slot < n_live
+    pad = lambda a, v: torch.nn.functional.pad(a, (0, k - kw), value=v)
+    return torch.where(keep, pad(vals, -1.0), -1.0), torch.where(keep, pad(rows, 0), filler)
+
+
 def select_candidates_flat(
     raw_flat: torch.Tensor,
     total_features: torch.Tensor,
@@ -466,14 +523,22 @@ def select_candidates_flat(
     top_k: int,
     Wc: int,
     plain: bool = False,
+    lo: int = 0,
 ) -> CoarseMatches:
     """Candidate selection over position-major scores (B, P, N) -> (B, top_k)
     CoarseMatches (the exhaustive path's select): on a card kernel TK over
     every frame at once (its plain twin with `plain`), on the CPU the plain
-    twin; one threshold copy a call."""
+    twin; one threshold copy a call.  vpos_flat (P, w) is the validity of
+    the columns [lo, lo + w) (every column by default): TK reads only
+    those, in place, and the result is the select over all N columns with
+    the others dead, bit for bit (_window_fillers)."""
     B, P, N = raw_flat.shape
+    w = vpos_flat.shape[1]
+    k = min(top_k, P * N)
     select = CK.select_topk_plain if plain else CK.select_topk
-    vals, idx = select(raw_flat, _sim_scale(total_features), vpos_flat, min(top_k, P * N))
+    vals, idx = select(raw_flat, _sim_scale(total_features[lo:lo + w]), vpos_flat,
+                       min(k, P * w), lo)
+    vals, idx = _window_fillers(vals, idx, vpos_flat[None], lo, N, k)
     return _coarse_matches(vals, idx % N, torch.div(idx, N, rounding_mode="floor"),
                            Wc, threshold)
 
@@ -487,15 +552,21 @@ def select_candidates_flat_pos(
     threshold: float,
     top_k: int,
     Wc: int,
+    lo: int = 0,
 ) -> CoarseMatches:
     """Selection over (B, m, N) survivor-position scores; positions map
-    back through p_idx (B, m).  Returns (B, top_k) CoarseMatches."""
+    back through p_idx (B, m).  vpos_flat (P, w) is the validity of the
+    columns [lo, lo + w) (every column by default): only those are read,
+    and the result is the select over all N columns with the others dead,
+    bit for bit (_window_fillers).  Returns (B, top_k) CoarseMatches."""
     B, m, N = raw_sub.shape
-    scale = _sim_scale(total_features)
-    vpos_sub = vpos_flat[p_idx] & p_keep[..., None]
-    sim = torch.where(vpos_sub, raw_sub.to(torch.float32) * scale, -1.0)
+    w = vpos_flat.shape[1]
+    scale = _sim_scale(total_features[lo:lo + w])
+    live = vpos_flat[p_idx] & p_keep[..., None]
+    sim = torch.where(live, raw_sub[..., lo:lo + w].to(torch.float32) * scale, -1.0)
     k = min(top_k, m * N)
-    vals, fidx = _topk_first_index(sim.reshape(B, m * N), k)
+    vals, fidx = _topk_first_index(sim.reshape(B, m * w), min(k, m * w))
+    vals, fidx = _window_fillers(vals, fidx, live, lo, N, k)
     pos = torch.gather(p_idx, 1, torch.div(fidx, N, rounding_mode="floor"))
     return _coarse_matches(vals, fidx % N, pos, Wc, threshold)
 
@@ -719,37 +790,20 @@ def coarse_scores_gemm_flat_batched(
     return exact_scores(Rb, exact, T, Kc, plain=plain).reshape(B, P, -1)
 
 
-def select_candidates_pooled(
-    raw: torch.Tensor,
-    total_features: torch.Tensor,
-    vpos_flat: torch.Tensor,
-    frame: torch.Tensor,
-    pos: torch.Tensor,
-    keep: torch.Tensor,
-    starts: torch.Tensor,
-    m_survivors: torch.Tensor,
-    threshold: float,
-    top_k: int,
-    Wc: int,
-    r_cap: int,
-):
-    """Per-frame selection from pooled scores (M, N): frame b selects over
-    the r_cap rows from clip(starts[b], 0, M - r_cap), masked to its own
-    rows — the reference's dynamic slice, so even the sub-threshold filler
-    slots agree.  Returns (CoarseMatches (B, top_k), n_valid (B,),
-    sel_overflow ())."""
-    M_, N = raw.shape
+def pooled_select_rows(frame: torch.Tensor, keep: torch.Tensor, starts: torch.Tensor,
+                       m_survivors: torch.Tensor, r_cap: int):
+    """Each frame's select range in a pool of M rows: the r_cap rows from
+    clip(starts[b], 0, M - r_cap), masked to its own — the reference's
+    dynamic slice, so even the sub-threshold filler slots agree.  Returns
+    (rows (B, rc), own (B, rc), sel_overflow ())."""
+    M_ = frame.shape[0]
     B = starts.shape[0]
     rc = min(r_cap, M_)
     sel_overflow = (m_survivors > rc).any()
     s = starts.clamp(0, M_ - rc)
-    rows = s[:, None] + torch.arange(rc, device=raw.device)  # (B, rc)
-    own = keep[rows] & (frame[rows] == torch.arange(B, device=raw.device)[:, None])
-    cands = select_candidates_flat_pos(
-        raw[rows], total_features, vpos_flat, pos[rows], own, threshold, top_k, Wc
-    )
-    n_valid = cands.valid.sum(dim=1).to(torch.int32)
-    return cands, n_valid, sel_overflow
+    rows = s[:, None] + torch.arange(rc, device=frame.device)  # (B, rc)
+    own = keep[rows] & (frame[rows] == torch.arange(B, device=frame.device)[:, None])
+    return rows, own, sel_overflow
 
 
 class PooledStats(NamedTuple):
@@ -810,6 +864,7 @@ def match_pooled_fine_with_fallback(
     """
     if T % g != 0:
         raise ValueError(f"g={g} must divide T={T}")
+    classes = _whole_axis(vpos_flat, threshold)
     with tracing.span("lpe.pool"):
         with tracing.span("lpe.pool.coarse"):
             if W_group is not None:
@@ -825,7 +880,7 @@ def match_pooled_fine_with_fallback(
             t_int = int_score_threshold(threshold, total_features).to(torch.int32)
         cands, n_valid, stats = _pooled_selects(
             Rb, pp, t_int, exact, W_fine, total_features, vpos_flat,
-            [(vpos_flat, threshold)], T, Kc, g, pool1, pool2, top_k, Wc, r_cap, plain)
+            classes, T, Kc, g, pool1, pool2, top_k, Wc, r_cap, plain)
     return cands[0], n_valid[0], stats
 
 
@@ -852,11 +907,12 @@ def _pooled_selects(
 ) -> tuple[list[CoarseMatches], list[torch.Tensor], PooledStats]:
     """The pooled matcher after its coarse plan `pp`: the g x g fine
     re-test at the pool (pool2; on overflow the coarse pool is scored
-    instead), the pool's exact scores and one select per class, and the
-    exhaustive scores when the coarse pool or a select range overflows.
-    `classes` holds (vpos_c (P, N), threshold_c) per class: each class
-    selects over its own columns at its own threshold.  Returns per-class
-    lists of CoarseMatches (B, top_k) and n_valid (B,), and PooledStats."""
+    instead), the pool's exact scores, each frame's rows gathered once,
+    and one select per class, and the exhaustive scores when the coarse
+    pool or a select range overflows.  `classes` holds a ClassColumns per
+    class: each class's select reads only its own columns, at its own
+    threshold.  Returns per-class lists of CoarseMatches (B, top_k) and
+    n_valid (B,), and PooledStats."""
     B = Rb.shape[0]
     dev = Rb.device
     P2 = min(pool2, pool1)
@@ -886,7 +942,10 @@ def _pooled_selects(
             fine_m = _per_frame_counts(pp.frame, felig, B)
             idx2, keep2, fine_total = _compact_eligible_flat(felig, P2)
             of2 = fine_total > P2
-        fine_of = _read_flag(of2)
+        # The fine flag and the fine pool's true total in one transfer.
+        fine_of, fine_seen = _read_scalars(of2, fine_total)
+        tracing.count("pool.fine_total", fine_seen)
+        tracing.count("pool.fine_slots", P2)
         if fine_of:
             tracing.count("pool.fine_overflow")
         with tracing.span("lpe.pool.exact"):
@@ -897,15 +956,13 @@ def _pooled_selects(
                 frame, pos, keep = pp.frame[idx2], pp.pos[idx2], keep2
                 starts, m_surv = torch.cumsum(fine_m, 0) - fine_m, fine_m
             raw = coarse_scores_gemm_pooled(Rb, exact, frame, pos, T, Kc, plain)
-            cands, n_valid, sel_of = [], [], false
-            for vpos_c, thr_c in classes:
-                c, nv, so = select_candidates_pooled(
-                    raw, total_features, vpos_c, frame, pos, keep, starts, m_surv,
-                    thr_c, top_k, Wc, r_cap,
-                )
-                cands.append(c)
-                n_valid.append(nv)
-                sel_of = sel_of | so
+            with tracing.span("lpe.pool.select"):
+                rows, own, sel_of = pooled_select_rows(frame, keep, starts, m_surv, r_cap)
+                raw_rows, pos_rows = raw[rows], pos[rows]
+                cands = [select_candidates_flat_pos(raw_rows, total_features, c.vpos, pos_rows,
+                                                    own, c.threshold, top_k, Wc, c.lo)
+                         for c in classes]
+                n_valid = [c.valid.sum(dim=1).to(torch.int32) for c in cands]
     fallback = pp.overflow | sel_of
     if _read_flag(fallback):
         if not coarse_of:
@@ -913,9 +970,9 @@ def _pooled_selects(
         with tracing.span("lpe.pool.fallback"):
             raw = coarse_scores_gemm_flat_batched(Rb, exact, T, Kc, plain)
             with tracing.span("lpe.pool.fallback.select"):
-                cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k,
-                                                Wc, plain)
-                         for vpos_c, thr_c in classes]
+                cands = [select_candidates_flat(raw, total_features, c.vpos, c.threshold,
+                                                top_k, Wc, plain, c.lo)
+                         for c in classes]
             n_valid = [c.valid.sum(dim=1).to(torch.int32) for c in cands]
     stats = PooledStats(
         coarse_total=pp.total, coarse_m=pp.m_survivors,
@@ -1215,9 +1272,9 @@ def _positions_selects(
     stage (`g`), the subcell re-test at `thr_bound` and the exact scores
     of the fine survivors, or of the coarse ones when a frame overflows
     m2_cap; the exhaustive scores when `pp` overflowed.  One select per
-    (vpos_c, threshold_c) of `classes`.  The reference's nested lax.cond's
-    are host branches here: each reads its flag with .item() (one device
-    sync) and only the taken branch runs.  Returns the
+    ClassColumns of `classes`, over its own columns.  The reference's
+    nested lax.cond's are host branches here: each reads its flag with
+    .item() (one device sync) and only the taken branch runs.  Returns the
     per-class CoarseMatches (B, top_k) and the FinePlan (None without a
     fine stage; a placeholder holding nothing on the exhaustive branch)."""
     B = Rb.shape[0]
@@ -1225,14 +1282,15 @@ def _positions_selects(
 
     def select_at(p_idx, p_keep):
         raw = coarse_scores_gemm_flat_batched_pos(Rb, exact, p_idx, T, Kc, plain)
-        return [select_candidates_flat_pos(raw, total_features, vpos_c, p_idx.long(),
-                                           p_keep, thr_c, top_k, Wc)
-                for vpos_c, thr_c in classes]
+        return [select_candidates_flat_pos(raw, total_features, c.vpos, p_idx.long(),
+                                           p_keep, c.threshold, top_k, Wc, c.lo)
+                for c in classes]
 
     if _read_flag(pp.overflow):
         raw = coarse_scores_gemm_flat_batched(Rb, exact, T, Kc, plain)
-        cands = [select_candidates_flat(raw, total_features, vpos_c, thr_c, top_k, Wc, plain)
-                 for vpos_c, thr_c in classes]
+        cands = [select_candidates_flat(raw, total_features, c.vpos, c.threshold, top_k, Wc,
+                                        plain, c.lo)
+                 for c in classes]
         if g is None:
             return cands, None
         km2 = min(m2_cap, pp.p_idx.shape[1])
@@ -1284,7 +1342,7 @@ def match_coarse_pruned_fine_with_fallback(
         Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, m_cap, plain)
     cands, fp = _positions_selects(
         Rb, pp, exact, W_fine, total_features, vpos_flat,
-        [(vpos_flat, threshold)], threshold, T, Kc, g, m2_cap, top_k, Wc, plain)
+        _whole_axis(vpos_flat, threshold), threshold, T, Kc, g, m2_cap, top_k, Wc, plain)
     return cands[0], pp, fp
 
 
@@ -1309,7 +1367,7 @@ def match_coarse_pruned_with_fallback(
         Rb, W_cell, total_features, vpos_flat, threshold, T, Kc, m_cap, plain)
     cands, _ = _positions_selects(
         Rb, pp, exact, None, total_features, vpos_flat,
-        [(vpos_flat, threshold)], threshold, T, Kc, None, None, top_k, Wc, plain)
+        _whole_axis(vpos_flat, threshold), threshold, T, Kc, None, None, top_k, Wc, plain)
     return cands[0], pp
 
 
@@ -1454,12 +1512,16 @@ def match_pooled_multiclass(
                                Wc, r_cap, plain)
 
 
-def _class_columns(vpos_flat: torch.Tensor, class_slices, thresholds):
-    """(vpos_c, threshold_c) per class: the validity mask restricted to the
-    class's own columns of the merged template axis."""
-    col = torch.arange(vpos_flat.shape[1], device=vpos_flat.device)
-    return [(vpos_flat & ((col >= lo) & (col < hi))[None, :], thr)
+def _class_columns(vpos_flat: torch.Tensor, class_slices, thresholds) -> list[ClassColumns]:
+    """A ClassColumns per class: its columns of the merged template axis,
+    their validity (P, hi - lo) and its select threshold."""
+    return [ClassColumns(lo, hi, vpos_flat[:, lo:hi].contiguous(), thr)
             for (lo, hi), thr in zip(class_slices, thresholds)]
+
+
+def _whole_axis(vpos_flat: torch.Tensor, threshold: float) -> list[ClassColumns]:
+    """The one class of a single-class bank: every column."""
+    return _class_columns(vpos_flat, [(0, vpos_flat.shape[1])], [threshold])
 
 
 def match_coarse_pruned_multiclass(
@@ -1519,23 +1581,35 @@ def merge_candidates_sorted(
         return merged, cat.valid.sum(dim=1).to(torch.int32)
 
 
+def class_bounds(class_slices: Sequence[tuple[int, int]], device) -> torch.Tensor:
+    """The classes' column ranges as a (2, C) int32 tensor on `device`
+    (row 0 the lo's, row 1 the hi's): split_matches_stacked's operand.  A
+    host copy: a caller that steps many batches builds it once."""
+    return torch.tensor(list(zip(*class_slices)), dtype=torch.int32, device=device)
+
+
+def split_matches_stacked(m: Matches, bounds: torch.Tensor, top_k: int) -> Matches:
+    """Split walked merged-bank matches (B, S) into every class's slots at
+    once, (B, C, top_k) fields: a class's slots are the frame's top_k by
+    similarity among its valid matches (ties in slot order), every slot's
+    id re-based to the class's own bank, the filler's too.  One top-k over
+    the (B, C, S) keys selects every class's slots; bounds is class_bounds'."""
+    lo, hi = bounds[0][:, None], bounds[1][:, None]  # (C, 1)
+    t = m.template_id[:, None, :]
+    mine = m.valid[:, None, :] & (t >= lo) & (t < hi)  # (B, C, S)
+    key = torch.where(mine, m.similarity[:, None, :], float("-inf"))
+    _, idx = _topk_first_index(key, min(top_k, key.shape[2]))
+    take = lambda a: torch.gather(a[:, None, :].expand_as(key), 2, idx)
+    return Matches(template_id=take(m.template_id) - lo, x=take(m.x), y=take(m.y),
+                   similarity=take(m.similarity), valid=torch.gather(mine, 2, idx))
+
+
 def split_matches_by_class(
     m: Matches, class_slices: Sequence[tuple[int, int]], top_k: int
 ) -> list[Matches]:
-    """Split walked merged-bank matches into per-class (B, top_k) records:
-    a class's slots are the frame's top_k by similarity among its valid
-    matches (ties in slot order), every slot's id re-based to the class's
-    own bank, the filler's too."""
-    out = []
-    for lo, hi in class_slices:
-        mine = m.valid & (m.template_id >= lo) & (m.template_id < hi)
-        key = torch.where(mine, m.similarity, float("-inf"))
-        _, idx = _topk_first_index(key, min(top_k, key.shape[1]))
-        take = lambda a: torch.gather(a, 1, idx)
-        out.append(Matches(template_id=take(m.template_id) - lo, x=take(m.x),
-                           y=take(m.y), similarity=take(m.similarity),
-                           valid=take(mine)))
-    return out
+    """split_matches_stacked as a list of per-class (B, top_k) records."""
+    st = split_matches_stacked(m, class_bounds(class_slices, m.valid.device), top_k)
+    return [Matches(*(a[:, c] for a in st)) for c in range(len(class_slices))]
 
 
 # ---------------------------------------------------------------------------

@@ -150,9 +150,11 @@ SELECT_TOPK_OPS_PER_ELEMENT = 1 + 1 + 1 + 2 + 1
 
 
 def select_topk(B: int, P: int, N: int, k: int) -> Bound:
-    """TK over B frames of (P, N) int32 scores: each score read once, the
-    (P, N) bool validity and (N,) f32 scale once, and the (B, k) f32 values
-    and int64 indices written; whatever passes an implementation makes."""
+    """TK over B frames of (P, N) int32 scores (N the columns it reads: a
+    class's window of a merged axis, or the whole row): each score read
+    once, the (P, N) bool validity and (N,) f32 scale once, and the (B, k)
+    f32 values and int64 indices written; whatever passes an implementation
+    makes."""
     n = P * N
     return bound(B * n * 4 + n + N * 4 + B * k * (4 + 8),
                  B * n * SELECT_TOPK_OPS_PER_ELEMENT)

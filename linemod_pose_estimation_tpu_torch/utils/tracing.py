@@ -26,6 +26,8 @@ thread):
       lpe.sync                each flag read on the host (``.item()``)
       lpe.pool.fine           the g x g bound to the fine compaction
       lpe.pool.exact          the exact pooled GEMM and the selects
+        lpe.pool.select       the selects: each frame's pool rows gathered
+                              once, one select a class over its own columns
       lpe.pool.fallback       the exhaustive scores and their selects
         lpe.pool.fallback.select  the selects (TK on a card)
     lpe.merge                 the merged matcher: its classes' candidates in one sorted list
@@ -50,6 +52,10 @@ Counters:
   pool.coarse_total     the coarse pool's true survivors, summed over steps
   pool.coarse_slots     the coarse pool's slots, summed over steps (read
                         in the coarse flag's transfer: the fill costs no sync)
+  pool.fine_total       the fine pool's true survivors, summed over the steps
+                        whose fine stage ran
+  pool.fine_slots       the fine pool's slots, summed over the same steps
+                        (read in the fine flag's transfer: no sync of its own)
   condition.frames      frames conditioned on the device
   multiclass.batch      steps through MultiClassBatchedMatcher
   multiclass.classes    its per-class selects: one a class a step

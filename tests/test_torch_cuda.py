@@ -462,7 +462,8 @@ def _tiled_matcher(cuda, B: int, **kw) -> BatchedMatcher:
 
 def _select_case(cuda, name: str):
     """(raw (B, P, N) int32, total_features (N,), vpos (P, N) bool or a
-    list of per-class masks, top_k, Wc) of TK's test case `name`."""
+    list of per-class ClassColumns (their columns' windows), top_k, Wc) of
+    TK's test case `name`."""
     g = torch.Generator().manual_seed(sum(map(ord, name)))
     rint = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
     if name == "fullbin_b32":
@@ -483,7 +484,8 @@ def _select_case(cuda, name: str):
                       "odd_p_n4": (3, 33, 524, 512, 3),
                       "k_past_pn": (2, 3, 5, 128, 3),
                       "signed": (3, 600, 1000, 300, 30),
-                      "two_class": (4, 1200, 5304, 128, 40)}[name]
+                      "two_class": (4, 1200, 5304, 128, 40),
+                      "eight_class_odd": (3, 150, 1031, 128, 15)}[name]
     raw = rint(0, 505, (B, P, N))
     count = rint(1, 127, (N,))
     vpos = torch.rand((P, N), generator=g) < 0.85
@@ -505,15 +507,22 @@ def _select_case(cuda, name: str):
         raw = rint(-6, 6, (B, P, N))
         raw[:, :, :7] = torch.tensor([0, -1, 2**31 - 1, -2**31, 2**24 + 1, -(2**24 + 1), 3],
                                      dtype=torch.int32)
-    if name == "two_class":
-        vpos = [c for c, _ in TM._class_columns(vpos, [(0, 2652), (2652, N)], [92.0, 94.0])]
+    elif name == "eight_class_odd":  # windows off the kernel's vectors; one with few live
+        vpos[:, 300:301] = False
     to = lambda t: t.to(cuda)
-    return to(raw), to(count), [to(v) for v in vpos] if name == "two_class" else to(vpos), k, Wc
+    if name == "two_class":
+        return (to(raw), to(count), TM._class_columns(to(vpos), [(0, 2652), (2652, N)],
+                                                      [92.0, 94.0]), k, Wc)
+    if name == "eight_class_odd":
+        ends = [0, 129, 300, 301, 433, 600, 777, 901, N]
+        return (to(raw), to(count), TM._class_columns(to(vpos), list(zip(ends, ends[1:])),
+                                                      [90.0] * 8), k, Wc)
+    return to(raw), to(count), to(vpos), k, Wc
 
 
 SELECT_CASES = ["fullbin_b32", "all_equal", "ties_at_kth", "fewer_valid_than_k", "vpos_none",
                 "detector_b1_k512", "k256", "odd_p_n", "odd_p_n4", "k_past_pn", "signed",
-                "two_class"]
+                "two_class", "eight_class_odd"]
 
 
 @pytest.mark.requires_cuda
@@ -525,20 +534,34 @@ def test_select_topk_kernel_equals_plain(cuda, case):
     ties straddling the k-th key; fewer valid positions than k and none
     (the -1.0 fillers, lowest index first); the detector's B=1 at k=512;
     k=256; P and N off the kernel's steps and vectors; k past P * N;
-    negative scores and int32 extremes; a two-class split of the columns."""
+    negative scores and int32 extremes; a two-class split of the columns and
+    eight windows of odd widths and offsets, each read in place (and the
+    select over the window equals the masked select over every column)."""
     raw, count, vposes, top_k, Wc = _select_case(cuda, case)
     B, P, N = raw.shape
-    scale = TM._sim_scale(count)
-    k = min(top_k, P * N)
-    for vpos in vposes if isinstance(vposes, list) else [vposes]:
+    whole = not isinstance(vposes, list)
+    for win in [TM.ClassColumns(0, N, vposes, 90.0)] if whole else vposes:
+        lo, vpos = win.lo, win.vpos
+        scale = TM._sim_scale(count[lo:win.hi])
+        k = min(top_k, P * vpos.shape[1])
         tracing.reset()
-        vals, idx = CK.select_topk(raw, scale, vpos, k)
+        vals, idx = CK.select_topk(raw, scale, vpos, k, lo)
         assert tracing.launches()["select_topk"] == 1
-        want_vals, want_idx = CK.select_topk_plain(raw, scale, vpos, k)
+        want_vals, want_idx = CK.select_topk_plain(raw, scale, vpos, k, lo)
         assert torch.equal(vals.view(torch.int32), want_vals.view(torch.int32)), case
         assert torch.equal(idx, want_idx), case
-        got = TM.select_candidates_flat(raw, count, vpos, 90.0, top_k, Wc)
-        want = TM.select_candidates_flat(raw, count, vpos, 90.0, top_k, Wc, plain=True)
+        got = TM.select_candidates_flat(raw, count, vpos, 90.0, top_k, Wc, lo=lo)
+        want = TM.select_candidates_flat(raw, count, vpos, 90.0, top_k, Wc, plain=True, lo=lo)
+        if not whole:  # the window's select is the masked select over every column
+            col = torch.arange(N, device=cuda)
+            masked = torch.zeros((P, N), dtype=torch.bool, device=cuda)
+            masked[:, lo:win.hi] = vpos
+            assert torch.equal(masked, masked & ((col >= lo) & (col < win.hi)))
+            full = TM.select_candidates_flat(raw, count, masked, 90.0, top_k, Wc)
+            for name, a, b in zip(got._fields, got, full):
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                assert torch.equal(a, b), (case, "masked", name)
         for name, a, b in zip(got._fields, got, want):
             if a.dtype == torch.float32:
                 a, b = a.view(torch.int32), b.view(torch.int32)
@@ -557,6 +580,8 @@ def test_select_topk_kernel_refuses_what_it_does_not_take(cuda):
         CK.select_topk(raw.float(), scale, vpos, 8)
     with pytest.raises(ValueError, match="shape"):
         CK.select_topk(raw, scale[:-1], vpos, 8)
+    with pytest.raises(ValueError, match="does not lie"):  # a window past raw's columns
+        CK.select_topk(raw, scale[:-1], vpos[:, :-1], 8, lo=2)
 
 
 @pytest.mark.requires_cuda

@@ -52,6 +52,7 @@ BATCH_PARENT = {
     "lpe.sync": "lpe.pool",
     "lpe.pool.fine": "lpe.pool",
     "lpe.pool.exact": "lpe.pool",
+    "lpe.pool.select": "lpe.pool.exact",
     "lpe.pool.fallback": "lpe.pool",
     "lpe.pool.fallback.select": "lpe.pool.fallback",
     "lpe.walk": "lpe.batch",
@@ -197,6 +198,9 @@ def test_untraced_steps_enter_no_record_function(kind, sub_detector, crops, stl,
         steps = 2 if kind == "match_batch" else 1
         assert tracing.counters.pop("pool.coarse_slots") == steps * 64 * B
         assert tracing.counters.pop("pool.coarse_total") > 0
+        # the fine pool's default 32 slots a frame, a step whose fine stage ran
+        assert tracing.counters.pop("pool.fine_slots") == steps * 32 * B
+        assert tracing.counters.pop("pool.fine_total") > 0
     if kind == "match_batch":
         # two pooled steps, the second falling back
         assert tracing.counters == {"batch": 2, "pool.select_overflow": 1}
@@ -266,8 +270,10 @@ def test_each_overflow_moves_its_own_counter(case, sub_detector, crops):
     m = pooled(sub_detector, crops, **kw)
     m.match_batch(*crops)
     st = m.last_pool
+    fine = {} if case == "coarse" else {"pool.fine_total": int(st.fine_total),
+                                        "pool.fine_slots": min(m.pool_fine, m.pool_coarse)}
     assert tracing.counters == {"batch": 1, "pool.coarse_total": int(st.coarse_total),
-                                "pool.coarse_slots": m.pool_coarse, **moved}
+                                "pool.coarse_slots": m.pool_coarse, **fine, **moved}
     c = lambda name: tracing.counters.get(name, 0)
     assert c("pool.coarse_overflow") == int(st.coarse_overflow)
     assert c("pool.fine_overflow") == int(st.fine_overflow)

@@ -6,15 +6,17 @@ For each seed the cell is set up as the benchmark sets it up (its driver,
 its scenes), with pools and select ranges that hold every level-1 position,
 and each of its batches is matched once: the line gives per batch the true
 coarse and fine totals and the largest per-frame counts.  Then, on the
-first seed, each `--pools C/F` (slots a frame; `exhaustive` forces the
-fallback) is timed over the pool's batches by CUDA events.
+first seed, each `--pools C/F[/S]` (slots a frame, and select rows;
+`exhaustive` forces the fallback) is timed over the pool's batches by CUDA
+events.
 
     python tools/pool_totals.py --workload ensenso-rgb-b32 --seeds 1,2,3 \
         [--pools 56/36,96/64,exhaustive] [--rounds 5]
 
-prints one JSON line a seed, then one a pool setting.  The driver must
-build its matcher from `serving.slice_settings` (the `batch` and
-`ensenso` drivers do).
+prints one JSON line a seed, then one a pool setting.  The driver builds
+its matcher from `serving.slice_settings` (the `batch` and `ensenso`
+drivers) or from the configuration's `matcher` settings (the `twoclass`
+driver); the tool overrides either.
 """
 
 from __future__ import annotations
@@ -51,6 +53,19 @@ def main() -> int:
     def settings(batch, *a, **k):
         return {**production(batch, *a, **k), **override}
 
+    def configured(B):
+        """The configuration with the override's pools in its `matcher`
+        settings (slots a frame), for a driver that reads them there."""
+        if "matcher" not in config:
+            return config
+        mk = dict(config["matcher"])
+        for key, name, per in (("pool_coarse", "pool_coarse_per_frame", B),
+                               ("pool_fine", "pool_fine_per_frame", B),
+                               ("sel_row_cap", "sel_row_cap", 1)):
+            if key in override:
+                mk[name] = max(1, override[key] // per)
+        return {**config, "matcher": mk}
+
     serving.slice_settings = settings
     seeds = [int(s) for s in args.seeds.split(",")]
     first = None
@@ -60,7 +75,7 @@ def main() -> int:
         P = production(B)["pool_group"] // B
         override.update(pool_coarse=B * P, pool_fine=B * P, sel_row_cap=P)
         torch.cuda.reset_peak_memory_stats(dev)
-        run = driver.Cell(config, traffic, seed, dev)
+        run = driver.Cell(configured(B), traffic, seed, dev)
         rows = []
         for _ in range(len(run.batches)):
             run.step()
@@ -86,9 +101,11 @@ def main() -> int:
         if spec == "exhaustive":
             override.update(pool_coarse=8)
         else:
-            c, f = (int(v) for v in spec.split("/"))
+            c, f, *sel = (int(v) for v in spec.split("/"))
             override.update(pool_coarse=c * B, pool_fine=f * B)
-        run = driver.Cell(config, traffic, seed, dev)
+            if sel:
+                override.update(sel_row_cap=sel[0])
+        run = driver.Cell(configured(B), traffic, seed, dev)
         ms, falls = [], 0
         for _ in range(args.rounds):
             for _ in range(len(run.batches)):
